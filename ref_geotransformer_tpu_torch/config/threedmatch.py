@@ -10,12 +10,16 @@ from __future__ import annotations
 from ref_geotransformer_tpu_torch.config.base import (
     BackboneConfig,
     CapacityConfig,
+    CoarseLossConfig,
     CoarseMatchingConfig,
     EvalConfig,
+    FineLossConfig,
     FineMatchingConfig,
     GeoTransformerConfig,
     GeoTransformerModuleConfig,
+    LossWeights,
     ModelConfig,
+    OptimConfig,
 )
 
 
@@ -79,6 +83,16 @@ def make_cfg(demo: bool = False) -> GeoTransformerConfig:
             correspondence_limit=None,
             num_refinement_steps=5,
         ),
+        coarse_loss=CoarseLossConfig(
+            positive_margin=0.1,
+            negative_margin=1.4,
+            positive_optimal=0.1,
+            negative_optimal=1.4,
+            log_scale=24.0,
+            positive_overlap=0.1,
+        ),
+        fine_loss=FineLossConfig(positive_radius=0.05),
+        loss=LossWeights(weight_coarse_loss=1.0, weight_fine_loss=1.0),
         eval=EvalConfig(
             acceptance_overlap=0.0,
             acceptance_radius=0.1,
@@ -87,4 +101,6 @@ def make_cfg(demo: bool = False) -> GeoTransformerConfig:
             rre_threshold=15.0,
             rte_threshold=0.3,
         ),
+        optim=OptimConfig(lr=1e-4, lr_decay=0.95, lr_decay_steps=1, weight_decay=1e-6, max_epoch=40,
+                          grad_acc_steps=1),
     )

@@ -94,10 +94,12 @@ def build_registration_inputs(
     capacities: Sequence[int],
     ref_feats: Optional[torch.Tensor] = None,
     src_feats: Optional[torch.Tensor] = None,
+    transform: Optional[torch.Tensor] = None,
     search_chunk: int = 2048,
 ) -> Dict:
     """Model input dict for one (ref, src) pair; default features are
-    all-ones (N, 1)."""
+    all-ones (N, 1). A ground-truth `transform` (4, 4), mapping src onto
+    ref, goes into the dict as "transform" (the model's training labels)."""
     args = (num_stages, voxel_size, radius, neighbor_limits, capacities, search_chunk)
     ref = build_pyramid(ref_points, ref_masks, *args)
     src = build_pyramid(src_points, src_masks, *args)
@@ -105,4 +107,7 @@ def build_registration_inputs(
         ref_feats = torch.ones((ref_points.shape[0], 1), dtype=torch.float32, device=ref_points.device)
     if src_feats is None:
         src_feats = torch.ones((src_points.shape[0], 1), dtype=torch.float32, device=src_points.device)
-    return {"ref": ref, "src": src, "ref_feats": ref_feats, "src_feats": src_feats}
+    data = {"ref": ref, "src": src, "ref_feats": ref_feats, "src_feats": src_feats}
+    if transform is not None:
+        data["transform"] = transform
+    return data

@@ -1,9 +1,12 @@
-"""The two CUDA kernels of the inference path, each beside its plain PyTorch version.
+"""The CUDA kernels of the port, each beside its plain PyTorch version.
 
 Counterpart of `ref_geotransformer_tpu/models/pallas_kernels.py`:
 
 * `geometric_embedding` (kernel `csrc/geo_embedding.cu`) replaces
   `geometric_embedding_pallas`;
+* `geometric_embedding_bwd` (kernel `csrc/geo_embedding_bwd.cu`) replaces
+  `_geo_embedding_bwd`; `GeometricEmbeddingFunction` joins the two, as
+  `make_geometric_embedding_vjp` does;
 * `sinkhorn_log_norm` (kernel `csrc/sinkhorn.cu`) replaces
   `sinkhorn_log_norm_pallas`.
 
@@ -42,31 +45,41 @@ def sinusoid(x: torch.Tensor, div_term: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.sin(omegas), torch.cos(omegas)], dim=-1)
 
 
-def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
-    """Plain PyTorch structure embedding: the XLA path of
-    `ref_geotransformer_tpu/models/embedding.py`, with the (N, N, k, C)
-    angle projections materialized, then reduced over k.
+def embedding_indices(row_points, points, row_ref_vectors, sigma_d, factor_a):
+    """Sinusoid arguments of the node pairs (i, j), i over `row_points`
+    (R, 3) with their `row_ref_vectors` (R, k, 3), j over `points` (N, 3):
+    d / sigma_d (R, N) and the k angles times factor_a (R, N, k).
 
-    Distances are taken from the anchor vectors p_m - p_n, so the diagonal
+    Distances are taken from the anchor vectors p_j - p_i, so the diagonal
     is exactly 0, as in the JAX package's jitted forward (XLA fuses the
     inner-product form there and it cancels exactly; evaluated op by op,
     that form leaves sqrt(rounding residual) ~ 1e-3 on the diagonal).
+    """
+    anc = points[None, :, :] - row_points[:, None, :]  # anc[i, j] = p_j - p_i
+    dist = torch.sqrt(torch.sum(anc * anc, dim=-1))  # (R, N)
+    ref = row_ref_vectors[:, None, :, :]  # (R, 1, k, 3)
+    anc_k = anc[:, :, None, :]  # (R, N, 1, 3)
+    sin_v = torch.linalg.norm(torch.linalg.cross(ref, anc_k), dim=-1)  # (R, N, k)
+    cos_v = torch.sum(ref * anc_k, dim=-1)
+    return dist / sigma_d, torch.atan2(sin_v, cos_v) * factor_a
+
+
+def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
+    """Plain PyTorch structure embedding: the XLA path of
+    `ref_geotransformer_tpu/models/embedding.py`, with the (N, N, k, C)
+    angle projections materialized, then reduced over k. Differentiable in
+    the weights: `amax` splits the gradient equally among tied branches,
+    as `jnp.max` does (`max(dim).values` would route it to one).
 
     Args: points (N, 3); ref_vectors (N, k, 3) vectors to each node's k
     nearest nodes; div_term (C/2,); wd, wa (C, C) with rows in
     [sin..., cos...] order; bd, ba (C,). Returns (N, N, C) float32.
     """
-    anc = points[None, :, :] - points[:, None, :]  # anc[n, m] = p_m - p_n
-    dist = torch.sqrt(torch.sum(anc * anc, dim=-1))  # (N, N)
-    ref = ref_vectors[:, None, :, :]  # (N, 1, k, 3)
-    anc_k = anc[:, :, None, :]  # (N, N, 1, 3)
-    sin_v = torch.linalg.norm(torch.linalg.cross(ref, anc_k), dim=-1)  # (N, N, k)
-    cos_v = torch.sum(ref * anc_k, dim=-1)
-    angles = torch.atan2(sin_v, cos_v) * factor_a  # (N, N, k)
     _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r} is not ported")
-    d_emb = sinusoid(dist / sigma_d, div_term) @ wd + bd
-    a_emb = sinusoid(angles, div_term) @ wa + ba  # (N, N, k, C)
-    return d_emb + a_emb.max(dim=2).values
+    d_idx, a_idx = embedding_indices(points, points, ref_vectors, sigma_d, factor_a)
+    d_emb = sinusoid(d_idx, div_term) @ wd + bd
+    a_emb = sinusoid(a_idx, div_term) @ wa + ba  # (N, N, k, C)
+    return d_emb + torch.amax(a_emb, dim=2)
 
 
 def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
@@ -99,6 +112,122 @@ def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, 
 
 
 geometric_embedding.launches = 0
+
+PLAIN_BWD_ELEMENTS = 1 << 26  # rows of a chunk x N x k x C kept under this in the plain backward
+
+
+def _row_chunks(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a):
+    """Per chunk of rows i, so that N = 1024 fits: (i0, i1, the distance
+    sinusoids (R, C), the angle arguments (R, k), their sinusoids (R, k, C)
+    and projections emb_t @ Wa + ba (R, k, C)), R = (i1 - i0) * N pairs."""
+    n, k = ref_vectors.shape[:2]
+    c = wa.shape[0]
+    rows = max(1, PLAIN_BWD_ELEMENTS // (n * k * c))
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        d_idx, a_idx = embedding_indices(points[i0:i1], points, ref_vectors[i0:i1], sigma_d, factor_a)
+        emb = sinusoid(a_idx, div_term).reshape(-1, k, c)
+        yield i0, i1, sinusoid(d_idx, div_term).reshape(-1, c), a_idx.reshape(-1, k), emb, emb @ wa + ba
+
+
+def geometric_embedding_bwd_plain(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a):
+    """Plain PyTorch backward of the structure embedding with respect to its
+    weights: the recompute-and-route math of `_geo_embedding_bwd`, chunked
+    over rows i.
+
+    g (N, N, C) is the cotangent of the output. Returns dwd, dbd, dwa, dba:
+    dWd = sum emb_d^T g, dbd = dba = sum g, dWa = sum_t emb_t^T (g * mask_t),
+    where mask_t routes each channel to the angle branch whose projection
+    emb_t @ Wa + ba won the max, ties split equally (the vjp of a max).
+    """
+    c = wa.shape[0]
+    dwd = torch.zeros((c, c), dtype=g.dtype, device=g.device)
+    dwa = torch.zeros_like(dwd)
+    db = torch.zeros((c,), dtype=g.dtype, device=g.device)
+    for i0, i1, emb_d, _, emb, proj in _row_chunks(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a):
+        gg = g[i0:i1].reshape(-1, c)
+        dwd += emb_d.T @ gg
+        db += gg.sum(dim=0)
+        ties = (proj == torch.amax(proj, dim=1, keepdim=True)).to(g.dtype)
+        mask = ties / torch.clamp(ties.sum(dim=1, keepdim=True), min=1.0)
+        dwa += emb.reshape(-1, c).T @ (gg[:, None, :] * mask).reshape(-1, c)
+    return dwd, db, dwa, db.clone()
+
+
+def near_ties(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a, tol):
+    """(N, N, C) bool: the pairs and channels whose two best angle
+    projections lie within `tol` of each other without tying exactly (an
+    exact tie: all k angles equal, on the diagonal and between nodes at one
+    location). Two computations of the projections differ in their last
+    bits, so there they may route g to different branches; a comparison of
+    two backward computations can leave those entries out. It exists for
+    such comparisons only (the tests, `chip_smoke.py`): no model path
+    calls it."""
+    n, k = ref_vectors.shape[:2]
+    c = wa.shape[0]
+    near = torch.zeros((n, n, c), dtype=torch.bool, device=points.device)
+    if k > 1:
+        for i0, i1, _, a_idx, _, proj in _row_chunks(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a):
+            top2 = torch.topk(proj, 2, dim=1).values
+            exact = (a_idx == a_idx[:, :1]).all(dim=1)
+            near[i0:i1] = ((top2[:, 0] - top2[:, 1] < tol) & ~exact[:, None]).reshape(i1 - i0, n, c)
+    return near
+
+
+def geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a):
+    """Weight gradients of `geometric_embedding` from the output cotangent
+    g (N, N, C); arguments and results as in `geometric_embedding_bwd_plain`.
+    On a CUDA tensor it runs the kernel, whose reduction over the N^2 rows
+    is deterministic (per-chunk partial sums added in a fixed order)."""
+    if points.device.type == "cpu":
+        return geometric_embedding_bwd_plain(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a)
+    _require(points.is_cuda, f"geometric_embedding_bwd: unsupported device {points.device}")
+    n, k, c = points.shape[0], ref_vectors.shape[1], wa.shape[0]
+    _check_f32_cuda("geometric_embedding_bwd", points.device, points=points, ref_vectors=ref_vectors,
+                    div_term=div_term, wa=wa, ba=ba, g=g)
+    _require(n % GEO_EMBEDDING_TILE == 0, f"geometric_embedding_bwd: N={n} is not a multiple of {GEO_EMBEDDING_TILE}")
+    _require(c % 64 == 0 and c <= 256, f"geometric_embedding_bwd: C={c} must be a multiple of 64 and <= 256")
+    _require(1 <= k <= 3, f"geometric_embedding_bwd: k={k} must be 1, 2 or 3")
+    _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),
+             "geometric_embedding_bwd: points must be (N, 3) and ref_vectors (N, k, 3)")
+    _require(tuple(wa.shape) == (c, c) and tuple(div_term.shape) == (c // 2,) and tuple(ba.shape) == (c,)
+             and tuple(g.shape) == (n, n, c), "geometric_embedding_bwd: weight or cotangent shapes")
+    lib = build.load_library()
+    size = 2 * c * c + c
+    partials = torch.empty((lib.gt_geo_embedding_bwd_chunks(), size), dtype=torch.float32, device=points.device)
+    out = torch.empty((size,), dtype=torch.float32, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.gt_geo_embedding_bwd(
+        points.data_ptr(), ref_vectors.data_ptr(), div_term.data_ptr(), wa.data_ptr(), ba.data_ptr(), g.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), n, k, c, float(sigma_d), float(factor_a), stream,
+    )
+    build.check(err, "gt_geo_embedding_bwd")
+    geometric_embedding_bwd.launches += 1
+    db = out[2 * c * c:]
+    return out[: c * c].view(c, c), db, out[c * c: 2 * c * c].view(c, c), db.clone()
+
+
+geometric_embedding_bwd.launches = 0
+
+
+class GeometricEmbeddingFunction(torch.autograd.Function):
+    """`geometric_embedding` with the gradient of `geometric_embedding_bwd`:
+    the kernels for CUDA tensors, the plain versions for CPU tensors.
+    Gradients reach wd, bd, wa and ba only; the geometry (points,
+    ref_vectors, div_term) is stop-gradient, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
+        ctx.save_for_backward(points, ref_vectors, div_term, wa, ba)
+        ctx.constants = (sigma_d, factor_a)
+        return geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, ref_vectors, div_term, wa, ba = ctx.saved_tensors
+        dwd, dbd, dwa, dba = geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g.contiguous(),
+                                                     *ctx.constants)
+        return None, None, None, dwd, dbd, dwa, dba, None, None, None
 
 
 def sinkhorn_log_norm_plain(scores, log_mu, log_nu, num_iterations):

@@ -26,9 +26,12 @@ from ref_geotransformer_tpu_torch.ops.pairwise import pairwise_distance
 class GeometricStructureEmbedding(nn.Module):
     """(B, N, 3) node clouds with (B, N) validity masks -> (B, N, N, C).
 
-    `use_kernel=True` routes through `cuda_kernels.geometric_embedding`
-    (the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
-    `use_kernel=False` always runs the plain version.
+    `use_kernel=True` routes through `cuda_kernels.GeometricEmbeddingFunction`
+    (the CUDA kernels, forward and backward, for CUDA tensors; their plain
+    versions for CPU tensors); `use_kernel=False` always runs the plain
+    forward and lets autograd differentiate it. Either way gradients reach
+    `proj_d` and `proj_a` through the permuted-row gather of their weights;
+    the geometry is stop-gradient, as in the JAX package.
     """
 
     def __init__(self, hidden_dim, sigma_d, sigma_a, angle_k, reduction_a="max", use_kernel=True):
@@ -62,6 +65,7 @@ class GeometricStructureEmbedding(nn.Module):
         c = self.hidden_dim
         half = c // 2
         dev = points.device
+        points = points.detach()
         div_term = torch.exp(torch.arange(0, c, 2, dtype=torch.float32, device=dev) * (-math.log(10000.0) / c))
         perm = torch.cat([2 * torch.arange(half, device=dev), 2 * torch.arange(half, device=dev) + 1])
         # Linear stores (out, in); the kernel takes (in, out) with permuted rows
@@ -75,6 +79,8 @@ class GeometricStructureEmbedding(nn.Module):
         ]
 
     def forward(self, points: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
-        fn = cuda_kernels.geometric_embedding if self.use_kernel else cuda_kernels.geometric_embedding_plain
+        fn = cuda_kernels.geometric_embedding_plain
+        if self.use_kernel:
+            fn = cuda_kernels.GeometricEmbeddingFunction.apply
         outs = [fn(*args) for args in self.kernel_args(points, masks)]
         return outs[0][None] if len(outs) == 1 else torch.stack(outs, dim=0)

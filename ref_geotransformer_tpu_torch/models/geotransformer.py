@@ -1,15 +1,15 @@
-"""GeoTransformer assembly: the inference forward.
+"""GeoTransformer assembly: the forward, for inference and for training.
 
 Counterpart of `ref_geotransformer_tpu/models/geotransformer.py`
-(`GeometricTransformer` and `GeoTransformer.__call__` without the
-ground-truth and training branches). The backbone runs once over the
-stacked (2, N, ...) ref/src pair, so its GroupNorm moments are joint over
-both clouds, like the JAX package's `pair_norm` vmap.
+(`GeometricTransformer` and `GeoTransformer.__call__`). The backbone runs
+once over the stacked (2, N, ...) ref/src pair, so its GroupNorm moments are
+joint over both clouds, like the JAX package's `pair_norm` vmap. Each
+`.detach()` stands where the JAX package has a `stop_gradient`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,8 +18,8 @@ from ref_geotransformer_tpu_torch.config import GeoTransformerConfig
 from ref_geotransformer_tpu_torch.models.attention import RPEConditionalTransformer
 from ref_geotransformer_tpu_torch.models.backbone import KPConvFPN
 from ref_geotransformer_tpu_torch.models.embedding import GeometricStructureEmbedding
-from ref_geotransformer_tpu_torch.models.matching import superpoint_matching
-from ref_geotransformer_tpu_torch.models.registration import local_to_global_registration
+from ref_geotransformer_tpu_torch.models.matching import superpoint_matching, superpoint_target_sample
+from ref_geotransformer_tpu_torch.models.registration import get_node_correspondences, local_to_global_registration
 from ref_geotransformer_tpu_torch.models.sinkhorn import LearnableLogOptimalTransport
 from ref_geotransformer_tpu_torch.ops.index import masked_gather
 from ref_geotransformer_tpu_torch.ops.partition import point_to_node_partition
@@ -54,7 +54,10 @@ def _stack_pair(ref: Dict, src: Dict) -> Dict:
 class GeoTransformer(nn.Module):
     """Point-cloud registration model; `forward(data)` takes the dict of
     `data.pyramid.build_registration_inputs` and returns the output dict,
-    whose `estimated_transform` (4, 4) maps src onto ref.
+    whose `estimated_transform` (4, 4) maps src onto ref. With a
+    ground-truth "transform" in `data` the output also holds the dense
+    node overlap and ambiguity maps; `training=True` (which needs it)
+    replaces the coarse proposals by targets sampled with `generator`.
 
     `use_kernels=False` runs the plain PyTorch versions of the CUDA kernels
     on every device (the reference the kernels are held against).
@@ -79,12 +82,17 @@ class GeoTransformer(nn.Module):
         self.optimal_transport = LearnableLogOptimalTransport(cfg.model.num_sinkhorn_iterations,
                                                               use_kernel=use_kernels)
 
-    @torch.no_grad()
-    def forward(self, data: Dict) -> Dict:
+    def forward(self, data: Dict, training: bool = False, generator: Optional[torch.Generator] = None) -> Dict:
+        """Autograd records the forward only when `training` is set."""
+        with torch.set_grad_enabled(training):
+            return self._forward(data, training, generator)
+
+    def _forward(self, data: Dict, training: bool, generator: Optional[torch.Generator]) -> Dict:
         cfg = self.cfg
         fine_level = cfg.backbone.fine_level
         k_patch = cfg.model.num_points_in_patch
         ref, src = data["ref"], data["src"]
+        transform = data.get("transform")
 
         ref_points_c, src_points_c = ref["points"][-1], src["points"][-1]
         ref_masks_c, src_masks_c = ref["masks"][-1], src["masks"][-1]
@@ -115,6 +123,14 @@ class GeoTransformer(nn.Module):
         output["ref_node_masks"] = ref_node_masks
         output["src_node_masks"] = src_node_masks
 
+        # ground-truth node correspondences (training labels, evaluation)
+        if transform is not None:
+            output["gt_node_overlap_map"], output["gt_node_ambiguous_map"] = get_node_correspondences(
+                ref_points_c, src_points_c, ref_node_knn_points, src_node_knn_points, transform,
+                cfg.model.ground_truth_matching_radius, ref_node_masks, src_node_masks, ref_node_knn_masks,
+                src_node_knn_masks, candidate_limit=cfg.capacities.gt_candidates,
+            )
+
         # 2. KPConv-FPN backbone over the stacked pair
         feats = torch.stack([data["ref_feats"], data["src_feats"]], dim=0)
         feats_list = self.backbone(feats, _stack_pair(ref, src))
@@ -135,19 +151,29 @@ class GeoTransformer(nn.Module):
 
         # 4. coarse proposals
         ref_node_corr_indices, src_node_corr_indices, node_corr_scores = superpoint_matching(
-            ref_feats_c, src_feats_c, ref_node_masks, src_node_masks,
+            ref_feats_c.detach(), src_feats_c.detach(), ref_node_masks, src_node_masks,
             cfg.coarse_matching.num_correspondences, cfg.coarse_matching.dual_normalization,
         )
         output["ref_node_corr_indices"] = ref_node_corr_indices
         output["src_node_corr_indices"] = src_node_corr_indices
-        output["node_corr_masks"] = torch.ones_like(node_corr_scores, dtype=torch.bool)
+        node_corr_masks = torch.ones_like(node_corr_scores, dtype=torch.bool)
+
+        # training: sampled ground-truth targets replace the proposals
+        if training:
+            if transform is None:
+                raise ValueError("training needs the ground-truth transform in data['transform']")
+            ref_node_corr_indices, src_node_corr_indices, node_corr_scores, node_corr_masks = (
+                superpoint_target_sample(output["gt_node_overlap_map"], cfg.coarse_matching.num_targets,
+                                         cfg.coarse_matching.overlap_threshold, generator=generator)
+            )
+        output["node_corr_masks"] = node_corr_masks
 
         # 5. patch gather
         ref_idx, src_idx = ref_node_corr_indices.long(), src_node_corr_indices.long()
         ref_node_corr_knn_indices = ref_node_knn_indices[ref_idx]  # (P, K)
         src_node_corr_knn_indices = src_node_knn_indices[src_idx]
-        ref_node_corr_knn_masks = ref_node_knn_masks[ref_idx]
-        src_node_corr_knn_masks = src_node_knn_masks[src_idx]
+        ref_node_corr_knn_masks = ref_node_knn_masks[ref_idx] & node_corr_masks[:, None]
+        src_node_corr_knn_masks = src_node_knn_masks[src_idx] & node_corr_masks[:, None]
         ref_node_corr_knn_points = ref_node_knn_points[ref_idx]
         src_node_corr_knn_points = src_node_knn_points[src_idx]
         ref_node_corr_knn_feats = masked_gather(ref_feats_f, ref_node_corr_knn_indices, 0.0)
@@ -160,16 +186,18 @@ class GeoTransformer(nn.Module):
         # 6. optimal transport
         matching_scores = torch.matmul(ref_node_corr_knn_feats, src_node_corr_knn_feats.transpose(1, 2))
         matching_scores = matching_scores / ref_feats_f.shape[1] ** 0.5
-        matching_scores = self.optimal_transport(matching_scores, ref_node_corr_knn_masks, src_node_corr_knn_masks)
+        matching_scores = self.optimal_transport(matching_scores, ref_node_corr_knn_masks, src_node_corr_knn_masks,
+                                                 training=training)
         output["matching_scores"] = matching_scores
 
         # 7. local-to-global registration
         fm = cfg.fine_matching
         lgr = local_to_global_registration(
-            ref_node_corr_knn_points, src_node_corr_knn_points, ref_node_corr_knn_masks, src_node_corr_knn_masks,
-            matching_scores, node_corr_scores, k=fm.topk, acceptance_radius=fm.acceptance_radius,
-            mutual=fm.mutual, confidence_threshold=fm.confidence_threshold, use_dustbin=fm.use_dustbin,
-            use_global_score=fm.use_global_score, correspondence_threshold=fm.correspondence_threshold,
+            ref_node_corr_knn_points.detach(), src_node_corr_knn_points.detach(), ref_node_corr_knn_masks,
+            src_node_corr_knn_masks, matching_scores.detach(), node_corr_scores.detach(), k=fm.topk,
+            acceptance_radius=fm.acceptance_radius, mutual=fm.mutual, confidence_threshold=fm.confidence_threshold,
+            use_dustbin=fm.use_dustbin, use_global_score=fm.use_global_score,
+            correspondence_threshold=fm.correspondence_threshold,
             correspondence_limit=cfg.capacities.correspondence_limit, num_refinement_steps=fm.num_refinement_steps,
         )
         output["ref_corr_points"] = lgr.ref_corr_points

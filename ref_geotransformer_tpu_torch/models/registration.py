@@ -1,21 +1,78 @@
-"""Local-to-global registration with static shapes.
+"""Ground-truth patch overlaps and local-to-global registration, static shapes.
 
-Counterpart of `compute_correspondence_matrix` and
-`local_to_global_registration` in `ref_geotransformer_tpu/models/registration.py`:
-per-patch weighted Procrustes over all K^2 cells of (P, K, K) weight
-tensors, a top-C dense verification set, the patch hypothesis with the most
-inliers, then `num_refinement_steps` global refits.
+Counterpart of `get_node_correspondences`, `compute_correspondence_matrix`
+and `local_to_global_registration` in
+`ref_geotransformer_tpu/models/registration.py`: a dense (M, N) overlap map
+of the training labels; per-patch weighted Procrustes over all K^2 cells of
+(P, K, K) weight tensors, a top-C dense verification set, the patch
+hypothesis with the most inliers, then `num_refinement_steps` global refits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ref_geotransformer_tpu_torch.models.procrustes import weighted_procrustes
 from ref_geotransformer_tpu_torch.ops import selection
+from ref_geotransformer_tpu_torch.ops.pairwise import pairwise_distance
 from ref_geotransformer_tpu_torch.ops.se3 import apply_transform
+
+
+def get_node_correspondences(
+    ref_nodes: torch.Tensor,
+    src_nodes: torch.Tensor,
+    ref_knn_points: torch.Tensor,
+    src_knn_points: torch.Tensor,
+    transform: torch.Tensor,
+    pos_radius: float,
+    ref_masks: torch.Tensor,
+    src_masks: torch.Tensor,
+    ref_knn_masks: torch.Tensor,
+    src_knn_masks: torch.Tensor,
+    candidate_limit: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (M, N) ground-truth patch-overlap map and ambiguity mask.
+
+    overlap(i, j) is the mean of the fraction of ref patch i's points with a
+    match in src patch j and the reverse, with src moved by `transform`; two
+    points match when closer than pos_radius. Exact overlaps are computed
+    for the `candidate_limit` node pairs whose enclosing spheres intersect
+    the most (exact top-k by margin); an intersecting pair left out by the
+    cap is marked ambiguous, neither positive nor negative.
+    """
+    m, n = ref_nodes.shape[0], src_nodes.shape[0]
+    src_nodes_t = apply_transform(src_nodes, transform)
+    src_knn_points_t = apply_transform(src_knn_points, transform)
+
+    ref_dists = torch.linalg.norm(ref_knn_points - ref_nodes[:, None, :], dim=-1)
+    ref_max_dists = torch.where(ref_knn_masks, ref_dists, 0.0).amax(dim=1)  # (M,)
+    src_dists = torch.linalg.norm(src_knn_points_t - src_nodes_t[:, None, :], dim=-1)
+    src_max_dists = torch.where(src_knn_masks, src_dists, 0.0).amax(dim=1)  # (N,)
+
+    node_dists = torch.sqrt(pairwise_distance(ref_nodes, src_nodes_t))  # (M, N)
+    margin = ref_max_dists[:, None] + src_max_dists[None, :] + pos_radius - node_dists
+    margin = torch.where(ref_masks[:, None] & src_masks[None, :], margin, -torch.inf)
+
+    top_margin, cand = torch.topk(margin.reshape(-1), candidate_limit)
+    cand_valid = top_margin > 0.0
+    cand_ref, cand_src = cand // n, cand % n
+
+    ref_m = ref_knn_masks[cand_ref]  # (P, K)
+    src_m = src_knn_masks[cand_src]
+    dist2 = pairwise_distance(ref_knn_points[cand_ref], src_knn_points_t[cand_src])  # (P, K, K)
+    match = (dist2 < pos_radius**2) & ref_m[:, :, None] & src_m[:, None, :]
+    ref_overlap = match.any(dim=2).sum(dim=1).float() / torch.clamp(ref_m.sum(dim=1).float(), min=1.0)
+    src_overlap = match.any(dim=1).sum(dim=1).float() / torch.clamp(src_m.sum(dim=1).float(), min=1.0)
+    overlaps = torch.where(cand_valid, 0.5 * (ref_overlap + src_overlap), 0.0)
+
+    overlap_map = torch.zeros((m * n,), dtype=ref_nodes.dtype, device=ref_nodes.device)
+    overlap_map = overlap_map.scatter_reduce(0, cand, overlaps.to(ref_nodes.dtype), "amax")
+    evaluated = torch.zeros((m * n,), dtype=torch.float32, device=ref_nodes.device)
+    evaluated = evaluated.scatter_reduce(0, cand, cand_valid.float(), "amax") > 0.0
+    ambiguous_map = (margin > 0.0) & ~evaluated.reshape(m, n)
+    return overlap_map.reshape(m, n), ambiguous_map
 
 
 class LGRResult(NamedTuple):

@@ -3,7 +3,9 @@
 Counterpart of `ref_geotransformer_tpu/models/sinkhorn.py`, with the
 empty-patch dustbin clamp and the final `- norm`. The iterations run in
 `cuda_kernels.sinkhorn_log_norm` (the CUDA kernel on the card, the plain
-loop on the CPU).
+loop on the CPU). In training they run the plain loop, which autograd
+differentiates: the kernel has no backward, and the JAX package likewise
+trains through its `lax.scan` loop, not its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ class LearnableLogOptimalTransport(nn.Module):
     """scores (B, M, N) with row (B, M) / col (B, N) validity masks ->
     (B, M+1, N+1) log assignment with a dustbin row and column.
 
-    `use_kernel=False` always runs the plain loop.
+    `use_kernel=False`, or `training=True` in the call, runs the plain loop.
     """
 
     def __init__(self, num_iterations: int, use_kernel: bool = True):
@@ -32,9 +34,10 @@ class LearnableLogOptimalTransport(nn.Module):
         self.alpha = nn.Parameter(torch.tensor(1.0))
 
     def forward(self, scores: torch.Tensor, row_masks: Optional[torch.Tensor] = None,
-                col_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+                col_masks: Optional[torch.Tensor] = None, training: bool = False) -> torch.Tensor:
         padded_scores, log_mu, log_nu, norm = self.prepare(scores, row_masks, col_masks)
-        fn = cuda_kernels.sinkhorn_log_norm if self.use_kernel else cuda_kernels.sinkhorn_log_norm_plain
+        use_kernel = self.use_kernel and not training
+        fn = cuda_kernels.sinkhorn_log_norm if use_kernel else cuda_kernels.sinkhorn_log_norm_plain
         return fn(padded_scores, log_mu, log_nu, self.num_iterations) - norm[:, None, None]
 
     def prepare(self, scores: torch.Tensor, row_masks: Optional[torch.Tensor] = None,

@@ -1,11 +1,12 @@
 """Build the CUDA kernels of `csrc/` into one shared library and load it.
 
-`nvcc` compiles every `csrc/*.cu` for `sm_90a` into
-`csrc/build/libgt_kernels.so` (plain C entry points, no PyTorch headers,
-so the build takes seconds), which is loaded with ctypes. The build runs on
-first use and again whenever a source is newer than the library;
-`csrc/build/build.log` keeps the compiler's output (`-Xptxas -v`: registers,
-shared memory and spills of each kernel).
+`nvcc` compiles every `csrc/*.cu` for `sm_90a`, one process per source, all
+started together, then links the objects into `csrc/build/libgt_kernels.so`
+(plain C entry points, no PyTorch headers, so the build takes seconds),
+which is loaded with ctypes. The build runs on first use and again whenever
+a source is newer than the library; `csrc/build/build.log` keeps the
+compiler's output (`-Xptxas -v`: registers, shared memory and spills of
+each kernel).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("geo_embedding.cu", "sinkhorn.cu")
+SOURCES = ("geo_embedding.cu", "geo_embedding_bwd.cu", "sinkhorn.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libgt_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
@@ -27,6 +28,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: the cudaError_t after the launch)
     "gt_geo_embedding": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "gt_geo_embedding_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "gt_geo_embedding_bwd_chunks": [],
     "gt_sinkhorn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -51,16 +54,32 @@ def build() -> str:
     if not _stale():
         return LIBRARY
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-    ] + [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    tag = f"{os.getpid()}.tmp"
+    objects = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o") for s in SOURCES]
+    commands = [[nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+                for src, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in commands]
+    outputs = [proc.communicate() for proc in procs]
+    log = [" ".join(cmd) + "\n" + out + err for cmd, (out, err) in zip(commands, outputs)]
+    failed = [(cmd[-1], proc.returncode, err) for cmd, proc, (_, err) in zip(commands, procs, outputs)
+              if proc.returncode != 0]
+    tmp = f"{LIBRARY}.{tag}"
+    if not failed:
+        link = [nvcc, *flags, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(("link", proc.returncode, proc.stderr))
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("".join(log))
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        name, code, err = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} (exit {code}):\n{err[-4000:]}")
     os.replace(tmp, LIBRARY)
     return LIBRARY
 

@@ -91,3 +91,10 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Load a JAX variables tree into `model` (strict: every key must match)."""
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return model
+
+
+def jax_gradients_by_name(grads: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree, which has the structure of the params tree, ->
+    {port parameter name: gradient} in the port's layout (Dense kernels
+    transposed), to compare with `model.named_parameters()`' `.grad`."""
+    return from_jax_variables({"params": grads})

@@ -1,7 +1,9 @@
-"""The port's two kernel modules: the plain PyTorch versions against the
-JAX package (its XLA / lax.scan paths and its Pallas kernels in interpret
-mode) on the CPU, and the CUDA kernels against the plain versions on a card
-(marked `cuda`: they skip where CUDA is absent). JAX is imported inside the
+"""The port's kernel modules: the plain PyTorch versions against the JAX
+package (its XLA / lax.scan paths and its Pallas kernels in interpret mode)
+on the CPU, and the CUDA kernels (the embedding forward and backward,
+Sinkhorn) against the plain versions on a card (marked `cuda`: they skip
+where CUDA is absent). The embedding backward's CPU parity tests are in
+tests/test_torch_port_train.py. JAX is imported inside the
 CPU tests only, so the card tests also run where JAX is not installed:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_kernels.py -m cuda`.
 
@@ -144,13 +146,18 @@ def test_cpu_tensors_take_the_plain_versions():
     assert after == before
 
 
-@pytest.mark.parametrize("wrapper", ["geometric_embedding", "sinkhorn_log_norm"])
+@pytest.mark.parametrize("wrapper", ["geometric_embedding", "geometric_embedding_bwd", "sinkhorn_log_norm"])
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back(wrapper):
     """Only a CPU tensor takes the plain version: any other device launches
     the kernel or raises (here a meta tensor, which no kernel takes)."""
     meta = torch.device("meta")
     if wrapper == "sinkhorn_log_norm":
         args = (torch.zeros(2, 3, 4, device=meta), torch.zeros(2, 3, device=meta), torch.zeros(2, 4, device=meta), 5)
+    elif wrapper == "geometric_embedding_bwd":
+        c = 64
+        args = (torch.zeros(32, 3, device=meta), torch.zeros(32, 3, 3, device=meta), torch.zeros(c // 2, device=meta),
+                torch.zeros(c, c, device=meta), torch.zeros(c, device=meta), torch.zeros(32, 32, c, device=meta),
+                0.2, 1.0)
     else:
         c = 8
         args = (torch.zeros(32, 3, device=meta), torch.zeros(32, 3, 3, device=meta), torch.zeros(c // 2, device=meta),
@@ -208,3 +215,65 @@ def test_sinkhorn_kernel_matches_plain_on_card(b, m1, n1):
     assert cuda_kernels.sinkhorn_log_norm.launches == launches + 1
     want = cuda_kernels.sinkhorn_log_norm_plain(scores, log_mu, log_nu, 100)
     assert float((got - want)[valid].abs().max()) <= 1e-3
+
+
+# the backward kernel: f32 sums over N^2 rows, in another order than the
+# plain version's (per-chunk partials of 32-row tiles vs chunked GEMMs):
+# held at 1e-4 of each gradient's largest magnitude. The two recompute the
+# angle projections in another order too, so a branch within rounding of
+# the winner may win in one and lose in the other, moving a row's share of
+# dWa: g is zeroed where the two best branches lie within NEAR_TIE but do
+# not tie exactly (exact ties, on the diagonal and between the padded
+# nodes, stay in).
+EMBEDDING_BWD_BOUND = 1e-4
+NEAR_TIE = 1e-3
+
+
+def _embedding_bwd_args(dev, n, c, seed):
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    points[n - n // 8:] = 0.0  # padded nodes at one location: exact ties, like the diagonal
+    ref_vectors = rng.uniform(-0.3, 0.3, (n, 3, 3)).astype(np.float32)
+    div_term = np.exp(np.arange(0, c, 2, dtype=np.float32) * (-np.log(10000.0) / c)).astype(np.float32)
+    wa = (rng.normal(size=(c, c)) / np.sqrt(c)).astype(np.float32)
+    ba = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(n, n, c)).astype(np.float32)).to(dev)
+    geometry = [torch.from_numpy(a).to(dev) for a in (points, ref_vectors, div_term, wa, ba)]
+    constants = [0.2, 180.0 / (15.0 * math.pi)]
+    g = torch.where(cuda_kernels.near_ties(*geometry, *constants, NEAR_TIE), 0.0, g)
+    return geometry + [g] + constants
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(64, 64), (512, 256)])
+def test_embedding_bwd_kernel_matches_plain_on_card(n, c):
+    dev = _cuda()
+    args = _embedding_bwd_args(dev, n, c, seed=n)
+    launches = cuda_kernels.geometric_embedding_bwd.launches
+    got = cuda_kernels.geometric_embedding_bwd(*args)
+    again = cuda_kernels.geometric_embedding_bwd(*args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.geometric_embedding_bwd.launches == launches + 2
+    want = cuda_kernels.geometric_embedding_bwd_plain(*args)
+    for name, x, y, z in zip(("dwd", "dbd", "dwa", "dba"), got, again, want):
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        assert float((x - z).abs().max()) <= EMBEDDING_BWD_BOUND * float(z.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_embedding_module_backward_launches_both_kernels_on_card():
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    module = GeometricStructureEmbedding(64, 0.2, 15.0, 3, "max").to(dev)
+    points = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 3)).astype(np.float32)).to(dev)
+    masks = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    before = (cuda_kernels.geometric_embedding.launches, cuda_kernels.geometric_embedding_bwd.launches)
+    module(points, masks).square().sum().backward()
+    torch.cuda.synchronize()
+    after = (cuda_kernels.geometric_embedding.launches, cuda_kernels.geometric_embedding_bwd.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    plain = GeometricStructureEmbedding(64, 0.2, 15.0, 3, "max", use_kernel=False).to(dev)
+    plain.load_state_dict(module.state_dict())
+    plain(points, masks).square().sum().backward()
+    for (name, p), q in zip(module.named_parameters(), plain.parameters()):
+        assert float((p.grad - q.grad).abs().max()) <= 1e-3 * float(q.grad.abs().max()), name
