@@ -10,114 +10,166 @@
 // where sc(x) = [sin(x * div_term), cos(x * div_term)] (C values: C/2
 // frequencies, sines first) and Wd, Wa are (C, C) with rows in that order.
 //
-// What bounds it on an H100: arithmetic. Per pair it evaluates (k + 1) * C/2
-// sin/cos pairs (512 at k = 3, C = 256) and (k + 1) products of a C-vector
-// with a C x C matrix (0.5 MFLOP). At N = 1024 that is 0.5 G sincos pairs
-// and 0.54 TFLOP per call, against 4 MB of output per 1024 pairs; the
-// unfused form instead moves several (N, N, k, C) f32 tensors (3.2 GB each at
-// N = 1024) through device memory.
+// What bounds it on an H100: the products. Per pair it evaluates (k + 1)
+// products of a C-vector with a C x C matrix (0.5 MFLOP at k = 3, C = 256):
+// 0.55 TFLOP per call at N = 1024, against 1.07 GB of output. The products
+// must keep f32 accuracy (the output is held to the plain f32 version), and
+// the card's f32-accurate rate is on the tensor cores: three TF32 products
+// per f32 product at 495 TFLOP/s, 165 TFLOP/s in effect (3.3 ms at N =
+// 1024), against 67 TFLOP/s of f32 FMA on the CUDA cores (8.2 ms). Beside
+// them: (k + 1) * C/2 precise sin/cos pairs per pair (arguments reach ~25
+// rad) on the CUDA cores, and the weights, which every block reads from L2.
 //
-// What the design does about it: a block owns 32 pairs of one row i and all
-// C output channels. It computes the 32 x C sinusoid tile of one branch into
-// shared memory (precise sincosf and atan2f: arguments reach ~25 rad), then
-// multiplies it by the branch's weight matrix, staged through shared memory
-// 8 rows at a time, each thread accumulating 8 pairs x 4 channels in
-// registers. The distance branch and the running angle max stay in registers
-// across the k angle branches, so each sinusoid is computed once and each
-// output element is written once. The product is plain f32 FMA on the CUDA
-// cores; tensor-core `wgmma` and TMA staging are left for later.
+// What the design does about it:
+// - Products on the tensor cores: warp-level `mma.sync.m16n8k8` TF32 with
+//   f32 accumulators. Each operand x is split into big = x truncated to
+//   TF32 and small = (x - big) truncated to TF32 (x - big is exact in f32),
+//   and a product is small*big + big*small + big*big: ~2^-20 relative,
+//   where one TF32 pass alone is off by ~1e-3 on this output. Shared memory
+//   holds plain f32; the split (two masks and an add: cvt.rna.tf32.f32
+//   took measurably longer) happens as a fragment is loaded.
+// - A block owns 64 pairs (row i, columns j0 .. j0 + 63) and all C output
+//   channels: 8 warps, 2 along the pairs x 4 along the channels, each warp
+//   a 32-pair x C/4-channel tile (2 x C/32 mma tiles). Against 32 pairs a
+//   block this halves the weight bytes read from L2 (~17 GB per call at
+//   N = 1024).
+// - The weights stream through shared memory in chunks of 32 rows, two
+//   stages with `cp.async`: chunk s + 1 (of this branch or the next) is in
+//   flight while chunk s is multiplied.
+// - The sinusoid tiles (64 x C) are double-buffered: the next branch's tile
+//   is computed on the CUDA cores a quarter of a chunk at a time between
+//   this branch's mma steps, so only the first branch's sinusoids stand
+//   alone. The arguments of all k + 1 branches are computed once per block.
+// - The k angle branches run first, keeping the running max in one
+//   accumulator set; the distance branch then runs into the free set and
+//   each output element is written once: (d + bd) + max. Two sets of 64
+//   f32 per thread; one block of 8 warps per SM (~197 KB of shared memory).
+// - Row strides of C + 4 floats (sinusoids) and C + 8 (weights) put the A
+//   and B fragment loads of a warp on 32 distinct banks.
+// - Stores are 8 bytes a thread straight from the accumulators: each warp
+//   store fills whole 32-byte sectors, and the output is a fraction of a
+//   millisecond of the memory's rate.
+// Measured on an H100 (PERF.md): 10.8 ms at N = 1024, 2.8 ms at N = 512.
+// Tried in trials and slower or no faster: 16-row chunks in three stages,
+// the three products in passes over all tiles instead of per tile, a
+// persistent block per SM that also fills the next tile's first sinusoids,
+// 16 warps as 4 x 4 and 8 warps as 1 x 8 (2 x 8 was a little faster but
+// needs C % 64 == 0). All land close to each other, which points at the
+// `mma.sync` path itself rather than at this kernel's stalls.
+// `wgmma` and TMA are left until a profile shows `mma.sync` issue-bound.
 //
-// Limits: N % 32 == 0, C % 8 == 0, C <= 256, k >= 1.
+// Limits: N % 64 == 0, C % 32 == 0, C <= 256, k >= 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairs = 32;          // pairs per block: row i, columns j0 .. j0 + 31
+constexpr int kWarpsN = 4;                        // warps along the channels; 2 along the pairs
+constexpr int kPairs = 64;                        // pairs per block: row i, columns j0 .. j0 + 63
+constexpr int kMTiles = 2;                        // 16-pair mma tiles per warp
 constexpr int kMaxC = 256;
-constexpr int kChannelGroups = 64;  // 4 output channels per thread
-constexpr int kRows = 8;            // pairs per thread (kThreads / kChannelGroups groups of 8)
-constexpr int kChunk = 8;           // weight rows staged per step
+constexpr int kMaxNTiles = kMaxC / (8 * kWarpsN);  // 8-channel mma tiles per warp
+constexpr int kChunk = 32;                        // weight rows per pipeline stage
+constexpr int kStages = 2;
+constexpr int kFeatStride = kMaxC + 4;
+constexpr int kWStride = kMaxC + 8;
+// sin/cos pairs of the next branch's tile computed per chunk of this
+// branch: kPairs * C/2 of them over C / kChunk chunks, whatever C is
+constexpr int kFillPerChunk = kPairs * kChunk / 2;
+constexpr int kFillPerStep = kFillPerChunk / (kChunk / 8);  // per 8-row mma step: one a thread
 
-struct __align__(16) Tile {
-  float feat[kMaxC * kPairs];  // feat[ci * kPairs + p]
-  float w[kChunk * kMaxC];     // weight rows c0 .. c0 + kChunk - 1
-  float idx[kPairs];           // sinusoid argument of each pair
-};
+struct __align__(16) Smem {
+  float feat[2][kPairs * kFeatStride];     // feat[b % 2][p * kFeatStride + ci]: sinusoids of branch b
+  float w[kStages][kChunk * kWStride];     // weight rows of a chunk
+};  // followed by the sinusoid arguments idx[b * kPairs + p] of the k + 1 branches
 
-__device__ __forceinline__ void fill_features(Tile& t, const float* __restrict__ div_term, int half) {
-  for (int item = threadIdx.x; item < half * kPairs; item += kThreads) {
-    const int f = item / kPairs, p = item % kPairs;
-    float s, c;
-    sincosf(t.idx[p] * div_term[f], &s, &c);
-    t.feat[f * kPairs + p] = s;
-    t.feat[(half + f) * kPairs + p] = c;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent and the 10 mantissa bits of TF32
+
+// x = big + small to ~2^-20 relative, each term a TF32 value, truncated by
+// masks (x - big is exact in f32); faster than cvt.rna.tf32.f32 in a trial
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & kTf32Mask;
+  small = __float_as_uint(x - __uint_as_float(big)) & kTf32Mask;
+}
+
+// d += a * b for one 16 x 8 x 8 tile (A row-major, B column-major)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// rows 0 .. kChunk - 1 of src (row length c) into a stage
+__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ src, int c) {
+  const int per_row = c / 4;
+  for (int e = threadIdx.x; e < kChunk * per_row; e += kThreads) {
+    const int r = e / per_row, q = e - r * per_row;
+    cp_async16(dst + r * kWStride + 4 * q, src + (size_t)r * c + 4 * q);
   }
 }
 
-// acc[r][q] = sum_ci feat[ci][pg * 8 + r] * w[ci][cg * 4 + q]
-__device__ __forceinline__ void project(Tile& t, float (&acc)[kRows][4], const float* __restrict__ w, int c, int pg,
-                                        int cg, bool active) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-  for (int c0 = 0; c0 < c; c0 += kChunk) {
-    __syncthreads();  // features written / previous chunk consumed
-    const float4* src = reinterpret_cast<const float4*>(w + (size_t)c0 * c);
-    for (int e = threadIdx.x; e < kChunk * c / 4; e += kThreads) reinterpret_cast<float4*>(t.w)[e] = src[e];
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int cc = 0; cc < kChunk; ++cc) {
-        const float4 b = reinterpret_cast<const float4*>(t.w + cc * c)[cg];
-        const float4* fa = reinterpret_cast<const float4*>(t.feat + (c0 + cc) * kPairs + pg * kRows);
-        const float4 a0 = fa[0], a1 = fa[1];
-        const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bq[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], bq[q], acc[r][q]);
-      }
-    }
-  }
+// sin/cos pair `item` (pair item / half, frequency item % half) of a tile
+__device__ __forceinline__ void fill_one(float* feat, const float* idx, const float* __restrict__ div_term, int half,
+                                         int item) {
+  const int p = item / half, f = item - p * half;
+  float s, c;
+  sincosf(idx[p] * div_term[f], &s, &c);
+  feat[p * kFeatStride + f] = s;
+  feat[p * kFeatStride + half + f] = c;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kC: the channel count when known at compile time, or 0 for any C % 32 == 0
+// (at C = 256 the generic instance measured 62% slower: PERF.md)
+template <int kC>
+__global__ void __launch_bounds__(kThreads, 1)
     geo_embedding_kernel(const float* __restrict__ points, const float* __restrict__ ref_vectors,
                          const float* __restrict__ div_term, const float* __restrict__ wd,
                          const float* __restrict__ bd, const float* __restrict__ wa, const float* __restrict__ ba,
-                         float* __restrict__ out, int n, int k, int c, float sigma_d, float factor_a) {
-  __shared__ Tile t;
+                         float* __restrict__ out, int n, int k, int c_arg, float sigma_d, float factor_a) {
+  extern __shared__ float4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  float* idx = reinterpret_cast<float*>(&sm + 1);
+  const int c = kC > 0 ? kC : c_arg;
+  const int ntiles = c / (8 * kWarpsN);
   const int i = blockIdx.y;
   const int j0 = blockIdx.x * kPairs;
   const int tid = threadIdx.x;
-  const int pg = tid / kChannelGroups;
-  const int cg = tid % kChannelGroups;
-  const bool active = cg * 4 < c;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;  // mma fragment coordinates: group, thread in group
+  const int row0 = (warp / kWarpsN) * (16 * kMTiles);
+  const int col0 = (warp % kWarpsN) * (c / kWarpsN);
   const int half = c / 2;
+  const int nk = c / kChunk;         // chunks per branch
+  const int total = (k + 1) * nk;    // k angle branches, then the distance branch
 
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;  // anchor vector p_j - p_i of pair tid (tid < kPairs)
+  auto issue = [&](int s) {
+    if (s < total) {
+      const float* w = (s / nk < k) ? wa : wd;
+      load_chunk(sm.w[s % kStages], w + (size_t)(s % nk) * kChunk * c, c);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
   if (tid < kPairs) {
     const int j = j0 + tid;
-    ax = points[3 * j] - points[3 * i];
-    ay = points[3 * j + 1] - points[3 * i + 1];
-    az = points[3 * j + 2] - points[3 * i + 2];
-    t.idx[tid] = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 0.0f)) / sigma_d;
-  }
-  __syncthreads();
-  fill_features(t, div_term, half);
-  float dist[kRows][4];
-  project(t, dist, wd, c, pg, cg, active);
-
-  float amax[kRows][4];
-  float acc[kRows][4];
-  for (int a = 0; a < k; ++a) {
-    __syncthreads();  // every thread is done with the previous branch's tile
-    if (tid < kPairs) {
+    const float ax = points[3 * j] - points[3 * i];
+    const float ay = points[3 * j + 1] - points[3 * i + 1];
+    const float az = points[3 * j + 2] - points[3 * i + 2];
+    for (int a = 0; a < k; ++a) {
       const float* r = ref_vectors + ((size_t)i * k + a) * 3;
       const float rx = r[0], ry = r[1], rz = r[2];
       const float cx = ry * az - rz * ay;
@@ -128,38 +180,106 @@ __global__ void __launch_bounds__(kThreads)
       // on the diagonal (anc = 0) the dot product can be -0, and
       // atan2f(+0, -0) = pi; the reference sums from +0 and gets angle 0
       if (cos_v == 0.0f) cos_v = 0.0f;
-      t.idx[tid] = atan2f(sin_v, cos_v) * factor_a;
+      idx[a * kPairs + tid] = atan2f(sin_v, cos_v) * factor_a;
     }
-    __syncthreads();
-    fill_features(t, div_term, half);
-    project(t, acc, wa, c, pg, cg, active);
-    if (active) {
+    idx[k * kPairs + tid] = sqrtf(fmaxf(ax * ax + ay * ay + az * az, 0.0f)) / sigma_d;
+  }
+  __syncthreads();
+  for (int item = tid; item < kPairs * half; item += kThreads) fill_one(sm.feat[0], idx, div_term, half, item);
+
+  float acc[kMTiles][kMaxNTiles][4];
+  float amax[kMTiles][kMaxNTiles][4];
+  for (int s = 0; s < total; ++s) {
+    const int branch = s / nk, chunk = s % nk;
+    cp_async_wait_all();  // this thread's copies of chunk s have landed
+    __syncthreads();      // everyone's have; the tile is written; the other stage is free
+    issue(s + 1);
+    if (chunk == 0) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float bias = ba[cg * 4 + q];
+      for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float v = acc[r][q] + bias;
-          amax[r][q] = (a == 0) ? v : fmaxf(amax[r][q], v);
+        for (int nt = 0; nt < kMaxNTiles; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
+    }
+    const float* feat = sm.feat[branch % 2];
+    const float* w = sm.w[s % kStages];
+    const bool fill_next = branch < k;  // the next branch's tile is filled under this one's products
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 8) {
+      const int kc = chunk * kChunk + kk;  // feature column of the tile
+      uint32_t a_big[kMTiles][4], a_small[kMTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        const float* f = feat + (row0 + mt * 16 + g) * kFeatStride + kc + tg;
+        split(f[0], a_big[mt][0], a_small[mt][0]);
+        split(f[8 * kFeatStride], a_big[mt][1], a_small[mt][1]);
+        split(f[4], a_big[mt][2], a_small[mt][2]);
+        split(f[8 * kFeatStride + 4], a_big[mt][3], a_small[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kMaxNTiles; ++nt) {
+        if (nt < ntiles) {
+          const float* b = w + (kk + tg) * kWStride + col0 + nt * 8 + g;
+          uint32_t b_big[2], b_small[2];
+          split(b[0], b_big[0], b_small[0]);
+          split(b[4 * kWStride], b_big[1], b_small[1]);
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {  // the small terms first
+            mma_tf32(acc[mt][nt], a_small[mt], b_big);
+            mma_tf32(acc[mt][nt], a_big[mt], b_small);
+          }
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) mma_tf32(acc[mt][nt], a_big[mt], b_big);
+        }
+      }
+      if (fill_next)
+        fill_one(sm.feat[(branch + 1) % 2], idx + (branch + 1) * kPairs, div_term, half,
+                 chunk * kFillPerChunk + (kk / 8) * kFillPerStep + tid);
+    }
+
+    if (chunk == nk - 1) {
+      const bool angle = branch < k;
+      const float* bias = angle ? ba : bd;
+#pragma unroll
+      for (int nt = 0; nt < kMaxNTiles; ++nt) {
+        if (nt < ntiles) {
+          const int col = col0 + nt * 8 + 2 * tg;  // this thread's channels col, col + 1
+          const float2 bq = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the tile
+              const float v0 = acc[mt][nt][2 * h] + bq.x, v1 = acc[mt][nt][2 * h + 1] + bq.y;
+              if (angle) {
+                amax[mt][nt][2 * h] = (branch == 0) ? v0 : fmaxf(amax[mt][nt][2 * h], v0);
+                amax[mt][nt][2 * h + 1] = (branch == 0) ? v1 : fmaxf(amax[mt][nt][2 * h + 1], v1);
+              } else {
+                const int j = j0 + row0 + mt * 16 + g + 8 * h;
+                *reinterpret_cast<float2*>(out + ((size_t)i * n + j) * c + col) =
+                    make_float2(v0 + amax[mt][nt][2 * h], v1 + amax[mt][nt][2 * h + 1]);
+              }
+            }
+          }
         }
       }
     }
   }
+}
 
-  if (!active) return;
-  float bdq[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bdq[q] = bd[cg * 4 + q];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int j = j0 + pg * kRows + r;
-    float4 o;
-    o.x = (dist[r][0] + bdq[0]) + amax[r][0];
-    o.y = (dist[r][1] + bdq[1]) + amax[r][1];
-    o.z = (dist[r][2] + bdq[2]) + amax[r][2];
-    o.w = (dist[r][3] + bdq[3]) + amax[r][3];
-    reinterpret_cast<float4*>(out + ((size_t)i * n + j) * c)[cg] = o;
-  }
+constexpr size_t smem_bytes(int k) { return sizeof(Smem) + sizeof(float) * (size_t)(k + 1) * kPairs; }
+
+template <int kC>
+int launch(const float* points, const float* ref_vectors, const float* div_term, const float* wd, const float* bd,
+           const float* wa, const float* ba, float* out, int n, int k, int c, float sigma_d, float factor_a,
+           cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(geo_embedding_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem_bytes(k));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n / kPairs, n);
+  geo_embedding_kernel<kC><<<grid, kThreads, smem_bytes(k), stream>>>(points, ref_vectors, div_term, wd, bd, wa, ba,
+                                                                       out, n, k, c, sigma_d, factor_a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -171,9 +291,11 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int gt_geo_embedding(const float* points, const float* ref_vectors, const float* div_term,
                                 const float* wd, const float* bd, const float* wa, const float* ba, float* out, int n,
                                 int k, int c, float sigma_d, float factor_a, void* stream) {
-  if (n <= 0 || n % kPairs != 0 || k < 1 || c <= 0 || c > kMaxC || c % kChunk != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kPairs, n);
-  geo_embedding_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, ref_vectors, div_term, wd, bd, wa, ba, out, n, k, c, sigma_d, factor_a);
-  return (int)cudaGetLastError();
+  if (n <= 0 || n % kPairs != 0 || k < 1 || smem_bytes(k) > 227 * 1024 || c <= 0 || c > kMaxC ||
+      c % (8 * kWarpsN) != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c == kMaxC)
+    return launch<kMaxC>(points, ref_vectors, div_term, wd, bd, wa, ba, out, n, k, c, sigma_d, factor_a, s);
+  return launch<0>(points, ref_vectors, div_term, wd, bd, wa, ba, out, n, k, c, sigma_d, factor_a, s);
 }

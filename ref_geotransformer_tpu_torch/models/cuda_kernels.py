@@ -22,7 +22,8 @@ import torch
 
 from ref_geotransformer_tpu_torch.utils import build
 
-GEO_EMBEDDING_TILE = 32  # node pairs per block; N must be a multiple
+GEO_EMBEDDING_TILE = 64  # node pairs per block of the forward kernel; N must be a multiple
+GEO_EMBEDDING_BWD_TILE = 32  # node pairs per row tile of the backward kernel; N must be a multiple
 SINKHORN_MAX_DIM = 128  # largest M1 and N1 the Sinkhorn kernel takes
 
 
@@ -85,7 +86,8 @@ def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sig
 def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
     """(N, N, C) geometric structure embedding of one cloud's nodes; the
     arguments are those of `geometric_embedding_plain`. On a CUDA tensor it
-    runs the fused kernel (precise sin/cos and atan2)."""
+    runs the fused kernel: precise sin/cos and atan2, products on the tensor
+    cores in TF32 with each operand split into two TF32 terms (f32-accurate)."""
     if points.device.type == "cpu":
         return geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a)
     _require(points.is_cuda, f"geometric_embedding: unsupported device {points.device}")
@@ -94,7 +96,7 @@ def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, 
                     div_term=div_term, wd=wd, bd=bd, wa=wa, ba=ba)
     _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r} is not ported")
     _require(n % GEO_EMBEDDING_TILE == 0, f"geometric_embedding: N={n} is not a multiple of {GEO_EMBEDDING_TILE}")
-    _require(c % 8 == 0 and c <= 256, f"geometric_embedding: C={c} must be a multiple of 8 and <= 256")
+    _require(c % 32 == 0 and c <= 256, f"geometric_embedding: C={c} must be a multiple of 32 and <= 256")
     _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),
              "geometric_embedding: points must be (N, 3) and ref_vectors (N, k, 3)")
     _require(tuple(wd.shape) == (c, c) and tuple(wa.shape) == (c, c) and tuple(div_term.shape) == (c // 2,)
@@ -185,7 +187,8 @@ def geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g, sigma_d, f
     n, k, c = points.shape[0], ref_vectors.shape[1], wa.shape[0]
     _check_f32_cuda("geometric_embedding_bwd", points.device, points=points, ref_vectors=ref_vectors,
                     div_term=div_term, wa=wa, ba=ba, g=g)
-    _require(n % GEO_EMBEDDING_TILE == 0, f"geometric_embedding_bwd: N={n} is not a multiple of {GEO_EMBEDDING_TILE}")
+    _require(n % GEO_EMBEDDING_BWD_TILE == 0,
+             f"geometric_embedding_bwd: N={n} is not a multiple of {GEO_EMBEDDING_BWD_TILE}")
     _require(c % 64 == 0 and c <= 256, f"geometric_embedding_bwd: C={c} must be a multiple of 64 and <= 256")
     _require(1 <= k <= 3, f"geometric_embedding_bwd: k={k} must be 1, 2 or 3")
     _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),
