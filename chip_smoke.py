@@ -46,12 +46,14 @@ TRAIN_STEPS = 3
 # kernel reads ~1e-3 here, so the bound tells a lost split apart
 EMBEDDING_BOUND = 1e-4
 # backward, relative to each gradient's largest magnitude: f32 sums over N^2
-# (up to 10^6) rows, in another order than the plain version's. The two also
-# recompute the angle projections in another order, so a branch within
-# rounding of the winner may win in one and lose in the other; the cotangent
-# is zeroed where the two best branches lie within NEAR_TIE without tying
-# exactly (exact ties, all k angles equal, stay in; the error with the near
-# ties left in is printed too).
+# (up to 10^6) rows, in another order than the plain version's, and
+# f32-accurate products (split TF32 on the tensor cores; a copy with one
+# TF32 pass reads ~4e-4 to 9e-4 here, PERF.md, so the bound tells a lost
+# split apart). The two also recompute the angle projections in another
+# order, so a branch within rounding of the winner may win in one and lose
+# in the other; the cotangent is zeroed where the two best branches lie
+# within NEAR_TIE without tying exactly (exact ties, all k angles equal,
+# stay in; the error with the near ties left in is printed too).
 EMBEDDING_BWD_BOUND = 1e-4
 NEAR_TIE = 1e-3
 SINKHORN_BOUND = 1e-3  # abs on valid entries; 100 dependent f32 log-sum-exp rounds, summed in another order

@@ -179,8 +179,11 @@ def near_ties(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a, tol):
 def geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a):
     """Weight gradients of `geometric_embedding` from the output cotangent
     g (N, N, C); arguments and results as in `geometric_embedding_bwd_plain`.
-    On a CUDA tensor it runs the kernel, whose reduction over the N^2 rows
-    is deterministic (per-chunk partial sums added in a fixed order)."""
+    On a CUDA tensor it runs the kernel: precise sin/cos and atan2, the
+    projections and weight-gradient products on the tensor cores in TF32
+    with each operand split into two TF32 terms (f32-accurate), and a
+    deterministic reduction over the N^2 rows (per-chunk partial sums added
+    in a fixed order)."""
     if points.device.type == "cpu":
         return geometric_embedding_bwd_plain(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a)
     _require(points.is_cuda, f"geometric_embedding_bwd: unsupported device {points.device}")

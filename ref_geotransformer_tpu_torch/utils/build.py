@@ -4,7 +4,7 @@
 started together, then links the objects into `csrc/build/libgt_kernels.so`
 (plain C entry points, no PyTorch headers, so the build takes seconds),
 which is loaded with ctypes. The build runs on first use and again whenever
-a source is newer than the library; `csrc/build/build.log` keeps the
+a source or header is newer than the library; `csrc/build/build.log` keeps the
 compiler's output (`-Xptxas -v`: registers, shared memory and spills of
 each kernel).
 """
@@ -19,6 +19,7 @@ import subprocess
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 SOURCES = ("geo_embedding.cu", "geo_embedding_bwd.cu", "sinkhorn.cu")
+HEADERS = ("tf32_mma.cuh",)
 LIBRARY = os.path.join(BUILD_DIR, "libgt_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
@@ -46,7 +47,7 @@ def _stale() -> bool:
     if not os.path.exists(LIBRARY):
         return True
     built = os.path.getmtime(LIBRARY)
-    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > built for s in SOURCES)
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > built for s in SOURCES + HEADERS)
 
 
 def build() -> str:
