@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Phases; any failure raises and the script exits non-zero:
-  1. require CUDA; print the card's name and power limit (nvidia-smi);
+  1. require CUDA; print the card's name and power limit (nvidia-smi) and
+     its largest SM clock (for the SFU's rate);
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source);
   3. each kernel against its plain PyTorch version on the card, on the
      inputs the main paths give it: the structure embedding and its
      backward on the demo pair's node clouds (N = 512 and 1024, C = 256,
      k = 3; a seeded cotangent for the backward, whose two launches must
-     agree bit for bit), Sinkhorn on the matching scores and masks of a
-     demo-pair forward (B = 256, 65 x 65, 100 iterations); error against
-     the stated bound, and the time of each beside its bound (the
-     embedding's products at the f32-accurate tensor-core rate);
+     agree bit for bit) and on the first 307 nodes of the N = 512 cloud
+     (the coarse cap of REF_GT_CAPS_SCALE=0.3, a ragged last tile),
+     Sinkhorn on the matching scores and masks of a demo-pair forward
+     (B = 256, 65 x 65, 100 iterations) and on the KITTI / ModelNet patch
+     size (B = 256, 129 x 129: seeded scores, ~5% of the rows and columns
+     masked, so ~10% of the entries); error against the stated bound, and
+     the time of each beside its bound (the embedding's products at the
+     f32-accurate tensor-core rate; Sinkhorn's exps at the SFU's rate);
   4. the inference path (pyramid + forward, 3DMatch stage-4 at published
      widths, bf16 backbone, seeded random weights) at demo and at full
      capacities: kernel launches of one forward, finite transform, ms/pair,
@@ -56,6 +61,7 @@ EMBEDDING_BOUND = 1e-4
 # stay in; the error with the near ties left in is printed too).
 EMBEDDING_BWD_BOUND = 1e-4
 NEAR_TIE = 1e-3
+RAGGED_NODES = 307  # the coarse cap of REF_GT_CAPS_SCALE=0.3: max(128, int(1024 * 0.3))
 SINKHORN_BOUND = 1e-3  # abs on valid entries; 100 dependent f32 log-sum-exp rounds, summed in another order
 PATH_FEATS_BOUND = 1e-3  # abs on the normalized coarse features, kernels vs plain, f32 path
 # f32 train step, kernels vs plain: the losses to 1e-4 relative (the
@@ -75,6 +81,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_PRODUCT_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
+# exp2 / log2 on the special function units: 16 a clock per SM (times the
+# SM count and the SM clock that the card reports)
+SFU_PER_CLOCK_PER_SM = 16
 
 
 def cuda_ms(fn, iters=TIMED_ITERS, warmup=2):
@@ -118,10 +127,26 @@ def embedding_work(n, k, c, backward):
 
 
 def sinkhorn_work(b, m1, n1, iters):
-    """Per iteration a row and a column log-sum-exp pass over B x M1 x N1,
+    """Per iteration a row and a column log-sum-exp pass over B x M1 x N1:
     ~5 operations per entry each (add, max, subtract, exp, sum); bytes: the
-    scores read and the result written, and the marginals read."""
-    return 10.0 * b * m1 * n1 * iters, 4.0 * (2 * b * m1 * n1 + b * m1 + b * n1)
+    scores read and the result written, and the marginals read; exps and
+    logs (on the SFU): one exp per entry and pass, one log per row and
+    column."""
+    flops = 10.0 * b * m1 * n1 * iters
+    nbytes = 4.0 * (2 * b * m1 * n1 + b * m1 + b * n1)
+    sfu = (2.0 * b * m1 * n1 + b * (m1 + n1)) * iters
+    return flops, nbytes, sfu
+
+
+def sinkhorn_bound(b, m1, n1, iters, sfu_per_s):
+    """(bound_ms, bound_by, term): the largest of the operations over the
+    f32 rate, the bytes over the memory rate and the exps and logs over the
+    SFU rate; bound_by is "operations" for the exps too, term names which."""
+    flops, nbytes, sfu = sinkhorn_work(b, m1, n1, iters)
+    terms = {"operations (f32)": flops / PEAK_F32_FLOPS, "bytes": nbytes / PEAK_BYTES_PER_S,
+             "operations (exps and logs on the SFU)": sfu / sfu_per_s}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def reset_counts(ck):
@@ -162,6 +187,11 @@ def main():
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * sms * float(clock.stdout.split()[0]) * 1e6
+    print(f"{sms} SMs, largest SM clock {clock.stdout.split()[0]} MHz: SFU rate {sfu_per_s:.4g} a second")
 
     # 2. build
     t0 = time.perf_counter()
@@ -175,15 +205,10 @@ def main():
     # 3. kernels against their plain versions, at main-path shapes
     results = {}
     emb_rows, bwd_rows = [], []
-    for demo_caps in (True, False):
-        cfg = make_cfg(demo=demo_caps)
-        model = demo.build_model(cfg, dev, seed=0)
-        pair = demo.load_pair(cfg, dev)
-        bb, caps = cfg.backbone, cfg.capacities
-        pyr = build_pyramid(pair["ref_points"], pair["ref_masks"], bb.num_stages, bb.init_voxel_size,
-                            bb.init_radius, caps.neighbor_limits, caps.points, caps.search_chunk)
-        nodes, node_masks = pyr["points"][-1], pyr["masks"][-1]
-        n, c, k = nodes.shape[0], cfg.geotransformer.hidden_dim, cfg.geotransformer.angle_k
+
+    def check_embedding(model, nodes, node_masks):
+        """The forward and backward kernels on one node cloud, against their plain versions."""
+        n, c, k = nodes.shape[0], model.transformer.embedding.hidden_dim, model.transformer.embedding.angle_k
         with torch.no_grad():
             (args,) = model.transformer.embedding.kernel_args(nodes[None], node_masks[None])
             got = ck.geometric_embedding(*args)
@@ -227,9 +252,41 @@ def main():
         check(identical, f"geo_embedding_bwd N={n}: two launches on the same inputs differ")
         check(rel_err <= EMBEDDING_BWD_BOUND, f"geo_embedding_bwd N={n}: error {rel_err} above {EMBEDDING_BWD_BOUND}")
         bwd_rows.append((n, abs_err, rel_err, ms, plain_ms))
-        del bwd_args, g
 
+    def check_sinkhorn(label, padded, log_mu, log_nu, iters):
+        """The Sinkhorn kernel against its plain version on one batch of patches."""
+        with torch.no_grad():
+            got = ck.sinkhorn_log_norm(padded, log_mu, log_nu, iters)
+            want = ck.sinkhorn_log_norm_plain(padded, log_mu, log_nu, iters)
+            torch.cuda.synchronize()
+            valid = padded > -1e11
+            err = float((got - want)[valid].abs().max())
+            masked_ok = bool((got[~valid] < -1e11).all() and (want[~valid] < -1e11).all())
+            ms = cuda_ms(lambda: ck.sinkhorn_log_norm(padded, log_mu, log_nu, iters))
+            plain_ms = cuda_ms(lambda: ck.sinkhorn_log_norm_plain(padded, log_mu, log_nu, iters))
+        b, m1, n1 = padded.shape
+        bound_ms, bound_by, term = sinkhorn_bound(b, m1, n1, iters, sfu_per_s)
+        print(f"[kernel] sinkhorn ({label}) B={b} {m1}x{n1} iters={iters} "
+              f"({float(valid.float().mean()) * 100:.1f}% valid entries): max_abs_err {err:.3e} on valid "
+              f"entries (bound {SINKHORN_BOUND:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms, set by the {term}: {100 * bound_ms / ms:.1f}% of it")
+        check(err <= SINKHORN_BOUND, f"sinkhorn {m1}x{n1}: error {err} above {SINKHORN_BOUND}")
+        check(masked_ok, f"sinkhorn {m1}x{n1}: a masked entry came out above -1e11")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
+    for demo_caps in (True, False):
+        cfg = make_cfg(demo=demo_caps)
+        model = demo.build_model(cfg, dev, seed=0)
+        pair = demo.load_pair(cfg, dev)
+        bb, caps = cfg.backbone, cfg.capacities
+        pyr = build_pyramid(pair["ref_points"], pair["ref_masks"], bb.num_stages, bb.init_voxel_size,
+                            bb.init_radius, caps.neighbor_limits, caps.points, caps.search_chunk)
+        nodes, node_masks = pyr["points"][-1], pyr["masks"][-1]
+        check_embedding(model, nodes, node_masks)
         if demo_caps:
+            check_embedding(model, nodes[:RAGGED_NODES].contiguous(), node_masks[:RAGGED_NODES].contiguous())
+
             captured = {}
 
             def capture(module, inputs):
@@ -238,26 +295,17 @@ def main():
             hook = model.optimal_transport.register_forward_pre_hook(capture)
             demo.register(model, cfg, pair)
             hook.remove()
+            ot = model.optimal_transport
             with torch.no_grad():
-                padded, log_mu, log_nu, _ = model.optimal_transport.prepare(*captured["inputs"])
-                iters = model.optimal_transport.num_iterations
-                got = ck.sinkhorn_log_norm(padded, log_mu, log_nu, iters)
-                want = ck.sinkhorn_log_norm_plain(padded, log_mu, log_nu, iters)
-                torch.cuda.synchronize()
-                valid = padded > -1e11
-                err = float((got - want)[valid].abs().max())
-                masked_ok = bool((got[~valid] < -1e11).all() and (want[~valid] < -1e11).all())
-                ms = cuda_ms(lambda: ck.sinkhorn_log_norm(padded, log_mu, log_nu, iters))
-                plain_ms = cuda_ms(lambda: ck.sinkhorn_log_norm_plain(padded, log_mu, log_nu, iters))
-            print(f"[kernel] sinkhorn B={padded.shape[0]} {padded.shape[1]}x{padded.shape[2]} iters={iters} "
-                  f"({float(valid.float().mean()) * 100:.1f}% valid entries): max_abs_err {err:.3e} on valid "
-                  f"entries (bound {SINKHORN_BOUND:.0e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            check(err <= SINKHORN_BOUND, f"sinkhorn: error {err} above {SINKHORN_BOUND}")
-            check(masked_ok, "sinkhorn: a masked entry came out above -1e11")
-            b, m1, n1 = padded.shape
-            bound_ms, bound_by = roofline(*sinkhorn_work(b, m1, n1, iters), PEAK_F32_FLOPS)
-            results["sinkhorn"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                   "bound_by": bound_by, "library_ms": None}
+                padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+                results["sinkhorn"] = check_sinkhorn("main path", padded, log_mu, log_nu, ot.num_iterations)
+                # the KITTI / ModelNet patch: 128 points and the dustbin
+                gen = torch.Generator(device=dev).manual_seed(129)
+                b, k1 = padded.shape[0], 128
+                scores = torch.randn((b, k1, k1), generator=gen, device=dev)
+                row_masks = torch.rand((b, k1), generator=gen, device=dev) < 0.95
+                col_masks = torch.rand((b, k1), generator=gen, device=dev) < 0.95
+                check_sinkhorn("seeded", *ot.prepare(scores, row_masks, col_masks)[:3], ot.num_iterations)
         del model
         torch.cuda.empty_cache()
     k, c = make_cfg().geotransformer.angle_k, make_cfg().geotransformer.hidden_dim

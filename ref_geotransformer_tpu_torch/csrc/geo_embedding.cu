@@ -49,6 +49,8 @@
 // - Stores are 8 bytes a thread straight from the accumulators: each warp
 //   store fills whole 32-byte sectors, and the output is a fraction of a
 //   millisecond of the memory's rate.
+// - Any N: the grid has ceil(N / 64) column tiles; the ragged last tile
+//   computes its columns j >= N from node N - 1 and does not store them.
 // Measured on an H100 (PERF.md): 10.8 ms at N = 1024, 2.8 ms at N = 512.
 // Tried in trials and slower or no faster: 16-row chunks in three stages,
 // the three products in passes over all tiles instead of per tile, a
@@ -58,7 +60,7 @@
 // `mma.sync` path itself rather than at this kernel's stalls.
 // `wgmma` and TMA are left until a profile shows `mma.sync` issue-bound.
 //
-// Limits: N % 64 == 0, C % 32 == 0, C <= 256, k >= 1.
+// Limits: N >= 1, C % 32 == 0, C <= 256, k >= 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   issue(0);
 
   if (tid < kPairs) {
-    const int j = j0 + tid;
+    const int j = min(j0 + tid, n - 1);  // the ragged tile's columns j >= n: any valid node, not stored
     const float ax = points[3 * j] - points[3 * i];
     const float ay = points[3 * j + 1] - points[3 * i + 1];
     const float az = points[3 * j + 2] - points[3 * i + 2];
@@ -232,8 +234,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 amax[mt][nt][2 * h + 1] = (branch == 0) ? v1 : fmaxf(amax[mt][nt][2 * h + 1], v1);
               } else {
                 const int j = j0 + row0 + mt * 16 + g + 8 * h;
-                *reinterpret_cast<float2*>(out + ((size_t)i * n + j) * c + col) =
-                    make_float2(v0 + amax[mt][nt][2 * h], v1 + amax[mt][nt][2 * h + 1]);
+                if (j < n)
+                  *reinterpret_cast<float2*>(out + ((size_t)i * n + j) * c + col) =
+                      make_float2(v0 + amax[mt][nt][2 * h], v1 + amax[mt][nt][2 * h + 1]);
               }
             }
           }
@@ -252,7 +255,7 @@ int launch(const float* points, const float* ref_vectors, const float* div_term,
   const cudaError_t err = cudaFuncSetAttribute(geo_embedding_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem_bytes(k));
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n / kPairs, n);
+  const dim3 grid((n + kPairs - 1) / kPairs, n);
   geo_embedding_kernel<kC><<<grid, kThreads, smem_bytes(k), stream>>>(points, ref_vectors, div_term, wd, bd, wa, ba,
                                                                        out, n, k, c, sigma_d, factor_a);
   return (int)cudaGetLastError();
@@ -267,7 +270,7 @@ int launch(const float* points, const float* ref_vectors, const float* div_term,
 extern "C" int gt_geo_embedding(const float* points, const float* ref_vectors, const float* div_term,
                                 const float* wd, const float* bd, const float* wa, const float* ba, float* out, int n,
                                 int k, int c, float sigma_d, float factor_a, void* stream) {
-  if (n <= 0 || n % kPairs != 0 || k < 1 || smem_bytes(k) > 227 * 1024 || c <= 0 || c > kMaxC ||
+  if (n <= 0 || k < 1 || smem_bytes(k) > 227 * 1024 || c <= 0 || c > kMaxC ||
       c % (8 * kWarpsN) != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -64,6 +64,9 @@
 //   a second kernel adds the chunks' slots in a fixed order. No float
 //   atomics, so two launches on the same inputs give bit-identical
 //   gradients.
+// - Any N: each row i has ceil(N / 32) tiles; the ragged last tile of a
+//   row computes its pairs j >= N from node N - 1 and takes their g as 0,
+//   so they add exactly 0 to every sum.
 // - 200,448 bytes of shared memory (three sinusoid tiles, the Wa slice,
 //   three routed tiles): one block of 8 warps per SM. C = 256 has its own
 //   instance, as in the forward; any other C % 64 == 0 takes the generic one.
@@ -73,7 +76,7 @@
 // at N = 1024 and 6.8 ms at N = 512, against 46.7-47.0 and 12.0 ms for the
 // earlier SIMT f32 kernel in the same run.
 //
-// Limits: N % 32 == 0, C % 64 == 0, C <= 256, 1 <= k <= 3.
+// Limits: N >= 1, C % 64 == 0, C <= 256, 1 <= k <= 3.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -125,11 +128,12 @@ __device__ __forceinline__ void fill(float* emb, const float* idx, const float* 
 }
 
 // the sinusoid arguments of tile (i, j0 ..): the distance (angle blocks:
-// the k angles) of pair r = threadIdx.x < kPairs
+// the k angles) of pair r = threadIdx.x < kPairs; pairs j >= n, whose g is
+// taken as 0, are given node n - 1's
 __device__ __forceinline__ void arguments(float (*idx)[kPairs], const float* __restrict__ points,
-                                          const float* __restrict__ ref_vectors, int i, int j0, int k, bool angle,
-                                          float sigma_d, float factor_a) {
-  const int r = threadIdx.x, j = j0 + r;
+                                          const float* __restrict__ ref_vectors, int i, int j0, int n, int k,
+                                          bool angle, float sigma_d, float factor_a) {
+  const int r = threadIdx.x, j = min(j0 + r, n - 1);
   const float ax = points[3 * j] - points[3 * i];
   const float ay = points[3 * j + 1] - points[3 * i + 1];
   const float az = points[3 * j + 2] - points[3 * i + 2];
@@ -218,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ci0 = 32 * warp;               // weight gradients: input channels ci0 .. ci0 + 31 of this warp
   const bool has_rows = ci0 < c;
 
-  const int tiles_per_row = n / kPairs;
+  const int tiles_per_row = (n + kPairs - 1) / kPairs;
   const long long tiles = (long long)n * tiles_per_row;
   const long long t_begin = tiles * chunk / kChunks, t_end = tiles * (chunk + 1) / kChunks;
   auto row_of = [&](long long tile) { return (int)(tile / tiles_per_row); };
@@ -238,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // tile t + 2 are computed during tile t, whose own were used up by then
   auto args_of = [&](long long tile) {
     if (tile < t_end && tid < kPairs)
-      arguments(s.idx[(tile - t_begin) & 1], points, ref_vectors, row_of(tile), col_of(tile), k, angle, sigma_d,
+      arguments(s.idx[(tile - t_begin) & 1], points, ref_vectors, row_of(tile), col_of(tile), n, k, angle, sigma_d,
                 factor_a);
   };
   args_of(t_begin);
@@ -270,15 +274,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (long long tile = t_begin; tile < t_end; ++tile) {
       const int it = (int)(tile - t_begin) & 1;
       __syncthreads();  // this tile's sinusoid tiles are filled; the routed tiles are consumed
-      float2 gv[2][2];  // g at rows pm + gq + 8h, channels pn + 8nt + 2tg, + 1
+      float2 gv[2][2];  // g at rows pm + gq + 8h, channels pn + 8nt + 2tg, + 1 (0 for pairs j >= n)
       {
         const float* src = g_tile(tile);
+        const int rows = n - col_of(tile);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            gv[nt][h] = __ldg(reinterpret_cast<const float2*>(src + (size_t)(pm + gq + 8 * h) * c + pn + 8 * nt +
-                                                              2 * tg));
+            gv[nt][h] = pm + gq + 8 * h < rows
+                            ? __ldg(reinterpret_cast<const float2*>(src + (size_t)(pm + gq + 8 * h) * c + pn +
+                                                                    8 * nt + 2 * tg))
+                            : make_float2(0.0f, 0.0f);
       }
       args_of(tile + 2);
 
@@ -380,9 +387,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto load_g = [&](long long tile, float* dst) {
       if (tile < t_end) {
         const float* src = g_tile(tile);
+        const int rows = n - col_of(tile);  // pairs j >= n get g = 0
         for (int e = tid; e < kPairs * (kSlice / 4); e += kThreads) {
           const int r = e / (kSlice / 4), q = e % (kSlice / 4);
-          cp_async16(dst + r * kStride + 4 * q, src + (size_t)r * c + 4 * q);
+          if (r < rows)
+            cp_async16(dst + r * kStride + 4 * q, src + (size_t)r * c + 4 * q);
+          else
+            *reinterpret_cast<float4*>(dst + r * kStride + 4 * q) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
       }
       cp_async_commit();
@@ -464,7 +475,7 @@ extern "C" int gt_geo_embedding_bwd_chunks() { return kChunks; }
 extern "C" int gt_geo_embedding_bwd(const float* points, const float* ref_vectors, const float* div_term,
                                     const float* wa, const float* ba, const float* g, float* partials, float* out,
                                     int n, int k, int c, float sigma_d, float factor_a, void* stream) {
-  if (n <= 0 || n % kPairs != 0 || k < 1 || k > kMaxK || c <= 0 || c > kMaxC || c % kSlice != 0)
+  if (n <= 0 || k < 1 || k > kMaxK || c <= 0 || c > kMaxC || c % kSlice != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = c == kMaxC

@@ -22,9 +22,7 @@ import torch
 
 from ref_geotransformer_tpu_torch.utils import build
 
-GEO_EMBEDDING_TILE = 64  # node pairs per block of the forward kernel; N must be a multiple
-GEO_EMBEDDING_BWD_TILE = 32  # node pairs per row tile of the backward kernel; N must be a multiple
-SINKHORN_MAX_DIM = 128  # largest M1 and N1 the Sinkhorn kernel takes
+SINKHORN_MAX_DIM = 144  # largest M1 and N1 the Sinkhorn kernel takes
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -86,7 +84,7 @@ def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sig
 def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
     """(N, N, C) geometric structure embedding of one cloud's nodes; the
     arguments are those of `geometric_embedding_plain`. On a CUDA tensor it
-    runs the fused kernel: precise sin/cos and atan2, products on the tensor
+    runs the fused kernel, for any N: precise sin/cos and atan2, products on the tensor
     cores in TF32 with each operand split into two TF32 terms (f32-accurate)."""
     if points.device.type == "cpu":
         return geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a)
@@ -95,7 +93,7 @@ def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, 
     _check_f32_cuda("geometric_embedding", points.device, points=points, ref_vectors=ref_vectors,
                     div_term=div_term, wd=wd, bd=bd, wa=wa, ba=ba)
     _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r} is not ported")
-    _require(n % GEO_EMBEDDING_TILE == 0, f"geometric_embedding: N={n} is not a multiple of {GEO_EMBEDDING_TILE}")
+    _require(n >= 1, "geometric_embedding: no nodes")
     _require(c % 32 == 0 and c <= 256, f"geometric_embedding: C={c} must be a multiple of 32 and <= 256")
     _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),
              "geometric_embedding: points must be (N, 3) and ref_vectors (N, k, 3)")
@@ -179,7 +177,7 @@ def near_ties(points, ref_vectors, div_term, wa, ba, sigma_d, factor_a, tol):
 def geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g, sigma_d, factor_a):
     """Weight gradients of `geometric_embedding` from the output cotangent
     g (N, N, C); arguments and results as in `geometric_embedding_bwd_plain`.
-    On a CUDA tensor it runs the kernel: precise sin/cos and atan2, the
+    On a CUDA tensor it runs the kernel, for any N: precise sin/cos and atan2, the
     projections and weight-gradient products on the tensor cores in TF32
     with each operand split into two TF32 terms (f32-accurate), and a
     deterministic reduction over the N^2 rows (per-chunk partial sums added
@@ -190,8 +188,7 @@ def geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g, sigma_d, f
     n, k, c = points.shape[0], ref_vectors.shape[1], wa.shape[0]
     _check_f32_cuda("geometric_embedding_bwd", points.device, points=points, ref_vectors=ref_vectors,
                     div_term=div_term, wa=wa, ba=ba, g=g)
-    _require(n % GEO_EMBEDDING_BWD_TILE == 0,
-             f"geometric_embedding_bwd: N={n} is not a multiple of {GEO_EMBEDDING_BWD_TILE}")
+    _require(n >= 1, "geometric_embedding_bwd: no nodes")
     _require(c % 64 == 0 and c <= 256, f"geometric_embedding_bwd: C={c} must be a multiple of 64 and <= 256")
     _require(1 <= k <= 3, f"geometric_embedding_bwd: k={k} must be 1, 2 or 3")
     _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),
@@ -254,7 +251,9 @@ def sinkhorn_log_norm_plain(scores, log_mu, log_nu, num_iterations):
 def sinkhorn_log_norm(scores, log_mu, log_nu, num_iterations):
     """Log-domain Sinkhorn normalization; arguments as in
     `sinkhorn_log_norm_plain`. On a CUDA tensor one block per patch keeps
-    the patch in shared memory for every iteration (M1, N1 <= 128)."""
+    the patch on chip for every iteration and reduces all its rows (then
+    all its columns) at once, a group of lanes each (M1, N1 <=
+    SINKHORN_MAX_DIM)."""
     if scores.device.type == "cpu":
         return sinkhorn_log_norm_plain(scores, log_mu, log_nu, num_iterations)
     _require(scores.is_cuda, f"sinkhorn_log_norm: unsupported device {scores.device}")

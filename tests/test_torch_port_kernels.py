@@ -78,6 +78,21 @@ def test_embedding_plain_matches_xla_path(jx, n_valid):
     jx.assert_close(got, want, name="embedding")
 
 
+@pytest.mark.parametrize("n_valid", [80, 70])
+def test_embedding_plain_matches_xla_path_at_any_n(jx, n_valid):
+    """N = 80, not a multiple of the kernels' tiles (64 pairs forward, 32
+    backward): the JAX module takes its XLA path there, as here."""
+    jax, jnp = jx.jax, jx.jnp
+    points, masks = _embedding_inputs(n=80, seed=4, n_valid=n_valid)
+    jax_mod = jx.Embedding(64, 0.2, 15.0, 3, "max")
+    variables = jax_mod.init(jax.random.key(1), jnp.array(points), jnp.array(masks))
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(jax_mod.apply)(variables, jnp.array(points), jnp.array(masks))
+    got = _port_embedding(variables, 64)(torch.from_numpy(points), torch.from_numpy(masks))
+    assert got.shape == (1, 80, 80, 64)
+    jx.assert_close(got, want, name="embedding")
+
+
 def test_embedding_plain_within_pallas_kernel_band(jx):
     """As tests/test_pallas_kernels.py runs the Pallas kernel: nodes in
     [-1, 1]^3, the module's initial weights, interpret mode."""
@@ -169,19 +184,78 @@ def test_sinkhorn_plain_matches_scan(jx):
     jx.assert_close(got, want, name="log assignment")
 
 
-def test_sinkhorn_plain_matches_pallas_kernel(jx):
+@pytest.mark.parametrize("b,m1,n1,masked", [(5, 9, 7, 0.0), (3, 129, 129, 0.1), (4, 33, 17, 0.1)])
+def test_sinkhorn_plain_matches_pallas_kernel(jx, b, m1, n1, masked):
+    """Small, the KITTI / ModelNet patch (128 points + dustbin) and a ragged
+    one; the last entry and a `masked` share of the others at -1e12."""
     jnp = jx.jnp
     rng = np.random.default_rng(0)
-    b, m1, n1 = 5, 9, 7
     scores = rng.normal(size=(b, m1, n1)).astype(np.float32)
     scores[:, -1, -1] = -1e12
     log_mu = rng.normal(size=(b, m1)).astype(np.float32)
     log_nu = rng.normal(size=(b, n1)).astype(np.float32)
+    scores[rng.uniform(size=scores.shape) < masked] = -1e12
     want = jx.pallas.sinkhorn_log_norm_pallas(jnp.array(scores), jnp.array(log_mu), jnp.array(log_nu), 30, block_b=2,
                                     interpret=True)
     got = cuda_kernels.sinkhorn_log_norm(torch.from_numpy(scores), torch.from_numpy(log_mu),
                                          torch.from_numpy(log_nu), 30)
     jx.assert_close(got, want, name="sinkhorn")
+
+
+def _sinkhorn_kernel_arithmetic(scores, log_mu, log_nu, iters):
+    """csrc/sinkhorn.cu's arithmetic in f32 numpy: base 2; the patch padded
+    to P x P (P = 4 E) with -1e30 and the duals with 0; lane l of a row's
+    (column's) group of four holds columns (rows) l + 4 e; a half-sweep
+    takes the lanes' maxima, the group's max, each lane's sum of
+    exp2(x - max) in order of e and the group's sum in the xor butterfly's
+    order, (s0 + s2) + (s1 + s3). np.exp2 / np.log2 stand in for the SFU's
+    ex2 / lg2."""
+    f = np.float32
+    log2e, ln2 = f(1.4426950408889634), f(0.6931471805599453)
+    b, m1, n1 = scores.shape
+    e = -(-max(m1, n1) // 4)
+    p = 4 * e
+    s2 = np.full((b, p, p), -1e30, f)
+    s2[:, :m1, :n1] = scores * log2e
+    mu2, nu2 = np.zeros((b, p), f), np.zeros((b, p), f)
+    mu2[:, :m1], nu2[:, :n1] = log_mu * log2e, log_nu * log2e
+    u, v = np.zeros((b, p), f), np.zeros((b, p), f)
+
+    def lse2(x):  # (b, p, p) -> (b, p): each row's log2 sum of exp2
+        lanes = x.reshape(b, p, e, 4)
+        m = lanes.max(axis=(2, 3))
+        sums = np.zeros((b, p, 4), f)
+        for k in range(e):
+            sums += np.exp2(lanes[:, :, k] - m[:, :, None])
+        return m + np.log2((sums[..., 0] + sums[..., 2]) + (sums[..., 1] + sums[..., 3]))
+
+    for _ in range(iters):
+        u = mu2 - lse2(s2 + v[:, None, :])
+        u[:, m1:] = 0.0
+        v = nu2 - lse2(s2.transpose(0, 2, 1) + u[:, None, :])
+        v[:, n1:] = 0.0
+    return ((s2 + u[:, :, None] + v[:, None, :]) * ln2)[:, :m1, :n1]
+
+
+@pytest.mark.parametrize("b,m1,n1", [(5, 9, 7), (4, 65, 65), (2, 129, 129), (3, 100, 37)])
+def test_sinkhorn_kernel_arithmetic_within_bound(b, m1, n1):
+    """Justifies the 1e-3 bound that the card tests and chip_smoke.py hold
+    the Sinkhorn kernel to, on the CPU; it tests no code of the port beyond
+    the plain version. The kernel's arithmetic, emulated at the 3DMatch and
+    KITTI / ModelNet patch sizes with 10% of the entries masked, stays
+    within a tenth of the bound of the plain version, and masked entries
+    stay masked."""
+    rng = np.random.default_rng(m1)
+    scores = rng.normal(size=(b, m1, n1)).astype(np.float32)
+    valid = rng.uniform(size=scores.shape) < 0.9
+    scores = np.where(valid, scores, np.float32(-1e12))
+    log_mu = rng.normal(size=(b, m1)).astype(np.float32)
+    log_nu = rng.normal(size=(b, n1)).astype(np.float32)
+    got = _sinkhorn_kernel_arithmetic(scores, log_mu, log_nu, 100)
+    want = cuda_kernels.sinkhorn_log_norm_plain(torch.from_numpy(scores), torch.from_numpy(log_mu),
+                                                torch.from_numpy(log_nu), 100).numpy()
+    assert float(np.abs(got - want)[valid].max()) <= 1e-4
+    assert (got[~valid] < -1e11).all()
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -232,8 +306,11 @@ def _cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,padded", [(64, 32, False), (512, 256, False), (512, 256, True), (1024, 256, False)])
+@pytest.mark.parametrize("n,c,padded", [(64, 32, False), (512, 256, False), (512, 256, True), (1024, 256, False),
+                                        (80, 64, False), (307, 256, True)])
 def test_embedding_kernel_matches_plain_on_card(n, c, padded):
+    """N = 80 and 307 (the coarse cap of REF_GT_CAPS_SCALE=0.3) end in a
+    ragged tile of the kernel's 64 pairs."""
     dev = _cuda()
     rng = np.random.default_rng(n)
     points = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
@@ -255,8 +332,12 @@ def test_embedding_kernel_matches_plain_on_card(n, c, padded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m1,n1", [(5, 9, 7), (256, 65, 65)])
+@pytest.mark.parametrize("b,m1,n1", [(5, 9, 7), (256, 65, 65), (256, 129, 129), (7, 1, 1), (3, 100, 37),
+                                     (4, 144, 133)])
 def test_sinkhorn_kernel_matches_plain_on_card(b, m1, n1):
+    """The 3DMatch patch (65 x 65) and the KITTI / ModelNet one (129 x 129),
+    each in a full batch; sizes that leave lanes and groups empty; and the
+    kernel's largest, whose column copy lies in shared memory."""
     dev = _cuda()
     rng = np.random.default_rng(b)
     scores = torch.from_numpy(rng.normal(size=(b, m1, n1)).astype(np.float32)).to(dev)
@@ -270,6 +351,18 @@ def test_sinkhorn_kernel_matches_plain_on_card(b, m1, n1):
     assert cuda_kernels.sinkhorn_log_norm.launches == launches + 1
     want = cuda_kernels.sinkhorn_log_norm_plain(scores, log_mu, log_nu, 100)
     assert float((got - want)[valid].abs().max()) <= 1e-3
+    assert bool((got[~valid] < -1e11).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m1,n1", [(cuda_kernels.SINKHORN_MAX_DIM + 1, 5), (5, cuda_kernels.SINKHORN_MAX_DIM + 1)])
+def test_sinkhorn_kernel_raises_beyond_its_limit(m1, n1):
+    dev = _cuda()
+    launches = cuda_kernels.sinkhorn_log_norm.launches
+    with pytest.raises(ValueError, match="beyond the kernel's limit"):
+        cuda_kernels.sinkhorn_log_norm(torch.zeros(2, m1, n1, device=dev), torch.zeros(2, m1, device=dev),
+                                       torch.zeros(2, n1, device=dev), 5)
+    assert cuda_kernels.sinkhorn_log_norm.launches == launches
 
 
 # the backward kernel: f32 sums over N^2 rows, in another order than the
@@ -309,13 +402,15 @@ def _embedding_bwd_args(dev, n, c, k, seed, ties_only=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,k,cotangent", [(64, 64, 3, "random"), (128, 128, 2, "random"), (512, 256, 3, "random"),
                                              (1024, 256, 3, "random"), (512, 256, 3, "ties_only"),
-                                             (512, 256, 1, "random")])
+                                             (512, 256, 1, "random"), (80, 64, 3, "random"),
+                                             (307, 256, 3, "random")])
 def test_embedding_bwd_kernel_matches_plain_on_card(n, c, k, cotangent):
     """The kernel against the plain version, and two launches bit for bit.
     "ties_only" keeps g on the exactly tied pairs only, where all k angles
     are 0 and every branch's sinusoids are [0..., 1...]: the masks must
     split g into k equal shares that sum to 1, so the cosine rows of dWa
-    equal db and its sine rows are 0. k = 1 has no routing."""
+    equal db and its sine rows are 0. k = 1 has no routing. N = 80 and 307
+    end in a ragged tile of the kernel's 32 pairs."""
     dev = _cuda()
     args = _embedding_bwd_args(dev, n, c, k, seed=n + k, ties_only=cotangent == "ties_only")
     launches = cuda_kernels.geometric_embedding_bwd.launches

@@ -113,16 +113,11 @@ def _diagonal_only(g, n_valid):
     return np.where(tie[:, :, None], g, 0.0).astype(np.float32)
 
 
-@pytest.mark.parametrize("cotangent", ["random", "ties_only"])
-def test_autograd_function_matches_jax_grad(cotangent):
-    """After tests/test_pallas_kernels.py: the gradient of sum(out * g) with
-    respect to proj_d and proj_a. "ties_only" keeps g only on the diagonal
-    and the padded pairs, where the k branches tie exactly: dWa must split
-    g among them (dividing by the tie count), as jnp.max's vjp does."""
-    n, c, n_valid = 64, 32, 50
-    points, _, _, _, _, g = _embedding_inputs(1, n=n, c=c, n_valid=n_valid)
-    if cotangent == "ties_only":
-        g = _diagonal_only(g, n_valid)
+def _assert_autograd_matches_jax_grad(points, g, n_valid):
+    """The gradients of sum(out * g) with respect to proj_d and proj_a: the
+    port's module (CPU tensors: the plain forward and backward) against
+    jax.grad of the JAX module's XLA path."""
+    n, c = g.shape[1:]
     masks = np.arange(n)[None] < n_valid
     jax_mod = JaxEmbedding(c, SIGMA_D, 15.0, 3, "max", use_pallas=False)
     variables = jax_mod.init(jax.random.key(0), jnp.asarray(points[None]), jnp.asarray(masks))
@@ -142,6 +137,28 @@ def test_autograd_function_matches_jax_grad(cotangent):
     for name, p in module.named_parameters():
         tol = XLA_DISTANCE_GRAD_TOL if name == "proj_d.weight" else XLA_GRAD_TOL
         assert _relative_error(p.grad, want[name]) <= tol, name
+
+
+@pytest.mark.parametrize("cotangent", ["random", "ties_only"])
+def test_autograd_function_matches_jax_grad(cotangent):
+    """After tests/test_pallas_kernels.py. "ties_only" keeps g only on the
+    diagonal and the padded pairs, where the k branches tie exactly: dWa
+    must split g among them (dividing by the tie count), as jnp.max's vjp
+    does."""
+    n, c, n_valid = 64, 32, 50
+    points, _, _, _, _, g = _embedding_inputs(1, n=n, c=c, n_valid=n_valid)
+    if cotangent == "ties_only":
+        g = _diagonal_only(g, n_valid)
+    _assert_autograd_matches_jax_grad(points, g, n_valid)
+
+
+def test_autograd_function_matches_jax_grad_at_any_n():
+    """N = 80, not a multiple of the kernels' tiles (64 pairs forward, 32
+    backward), C = 64: the plain forward and backward against the JAX
+    module, which takes its XLA path there."""
+    n, c, n_valid = 80, 64, 70
+    points, _, _, _, _, g = _embedding_inputs(5, n=n, c=c, n_valid=n_valid)
+    _assert_autograd_matches_jax_grad(points, g, n_valid)
 
 
 def test_ties_split_the_gradient():
