@@ -32,7 +32,19 @@ Phases; any failure raises and the script exits non-zero:
      sampled targets, one pair per step): a warm-up step, then timed steps,
      each with finite losses, no step skipped by the non-finite guard, and
      2 forward and 2 backward embedding launches and no Sinkhorn launch;
-     ms/step and peak memory.
+     ms/step and peak memory;
+  8. the 3DMatch CLI chain on the card, through its entry points' main(argv):
+     a fixture tree in a temporary directory (4 train and 2 val pairs of
+     15000 points drawn from the demo scans, no augmentation), trainval for
+     one epoch at full capacities (every step: finite losses, none skipped,
+     2 forward and 2 backward embedding launches, no Sinkhorn launch; each
+     validation pair: 2 forward embedding and 1 Sinkhorn launch; epoch-1 and
+     snapshot written), test of epoch-1 over the val benchmark (one .npz
+     with the full key set per pair, 1 Sinkhorn launch per pair), and the
+     offline eval with lgr and svd (finite summaries, RR in [0, 1]); the
+     trainer's ms/step over its warm steps beside phase 7's, the host gap
+     before each step, the first step on its own, the tester's pairs/s,
+     peak memory.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -45,6 +57,14 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TIMED_ITERS = 10
 TRAIN_STEPS = 3
+# phase 8: the fixture tree of the CLI chain
+FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, FIXTURE_POINTS = 4, 2, 15000
+# the keys each test dump must hold (tests/test_fixture_cli_e2e.py)
+REQUIRED_NPZ_KEYS = {
+    "ref_points", "src_points", "ref_points_c", "src_points_c", "ref_feats_c", "src_feats_c",
+    "ref_node_corr_indices", "src_node_corr_indices", "ref_corr_points", "src_corr_points", "corr_scores",
+    "gt_node_corr_overlaps",
+}
 # forward, abs: kernel and plain version both take precise sin/cos and atan2
 # and f32-accurate products (the kernel's as three TF32 tensor-core passes on
 # split operands), so they differ by f32 rounding (~1e-5); a one-pass TF32
@@ -157,6 +177,138 @@ def reset_counts(ck):
 
 def read_counts(ck):
     return (ck.geometric_embedding.launches, ck.geometric_embedding_bwd.launches, ck.sinkhorn_log_norm.launches)
+
+
+def cli_chain(ck, dev, bare_ms):
+    """Phase 8 on the card; returns the kernel launches of its train,
+    validation and test passes."""
+    import glob
+    import math
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    from ref_geotransformer_tpu_torch.engine import tester as tester_mod
+    from ref_geotransformer_tpu_torch.engine import trainer as trainer_mod
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import config, fixture, test, trainval
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval as offline_eval
+
+    records = {"train": [], "val": [], "test": []}
+
+    def counted(kind, fn):
+        """fn, recording for each call its start (host clock), its time to a
+        synchronize, its kernel launches and its result."""
+        def wrapper(*args, **kwargs):
+            before = read_counts(ck)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            records[kind].append({"start": t0, "ms": 1e3 * (time.perf_counter() - t0), "out": out,
+                                  "launches": tuple(x - y for x, y in zip(read_counts(ck), before))})
+            return out
+        return wrapper
+
+    patched = [(trainer_mod, "train_batch"), (trainer_mod, "eval_batch"), (tester_mod, "forward")]
+    originals = [getattr(module, name) for module, name in patched]
+    for (module, name), kind in zip(patched, ("train", "val", "test")):
+        setattr(module, name, counted(kind, getattr(module, name)))
+    env = {key: os.environ.get(key) for key in ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG",
+                                                "REF_GT_CAPS_SCALE", "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY")}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "3DMatch")
+            scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
+            fixture.make_fixture_tree(root, n_train=FIXTURE_TRAIN_PAIRS, n_val=FIXTURE_VAL_PAIRS,
+                                      points=FIXTURE_POINTS, real_base=scans)
+            for key in env:
+                os.environ.pop(key, None)
+            os.environ.update(REF_GT_3DMATCH_ROOT=root, REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
+                              REF_GT_USE_AUG="0")
+            print(f"[cli] fixture tree: {FIXTURE_TRAIN_PAIRS} train and {FIXTURE_VAL_PAIRS} val pairs of "
+                  f"{FIXTURE_POINTS} points from the demo scans; caps {config.make_cfg().capacities.points}")
+            reset_counts(ck)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            trainer = trainval.main(["--max_epoch", "1", "--log_steps", "1", "--device", "cuda"])
+            train_s = time.perf_counter() - t0
+            train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            steps, vals = records["train"], records["val"]
+            check(len(steps) == FIXTURE_TRAIN_PAIRS,
+                  f"trainval: {len(steps)} train steps, expected {FIXTURE_TRAIN_PAIRS}")
+            for i, r in enumerate(steps):
+                values = {key: float(v) for key, v in r["out"].items()}
+                print(f"[cli:train] step {i + 1}: loss {values['loss']:.6f}, c_loss {values['c_loss']:.6f}, "
+                      f"f_loss {values['f_loss']:.6f}; {r['ms']:.2f} ms to a synchronize; launches: geo_embedding "
+                      f"{r['launches'][0]}, geo_embedding_bwd {r['launches'][1]}, sinkhorn {r['launches'][2]}")
+                check(all(math.isfinite(v) for v in values.values()), f"trainval step {i + 1}: non-finite loss")
+                check(r["launches"] == (2, 2, 0), f"trainval step {i + 1}: expected 2 forward, 2 backward embedding "
+                                                  f"launches and no Sinkhorn launch, got {r['launches']}")
+            check(trainer.state.skipped == 0 and trainer.state.count == FIXTURE_TRAIN_PAIRS,
+                  f"trainval: {trainer.state.skipped} steps skipped, {trainer.state.count} applied")
+            check(len(vals) == FIXTURE_VAL_PAIRS,
+                  f"trainval: {len(vals)} validation pairs, expected {FIXTURE_VAL_PAIRS}")
+            for i, r in enumerate(vals):
+                check(r["launches"] == (2, 0, 1), f"validation pair {i + 1}: expected 2 forward embedding and 1 "
+                                                  f"Sinkhorn launch, got {r['launches']}")
+                check(all(math.isfinite(float(v)) for v in r["out"].values()), f"validation pair {i + 1}: non-finite")
+            for name in ("epoch-1.pth.tar", "snapshot.pth.tar"):
+                check(os.path.isfile(os.path.join(config.SNAPSHOT_DIR, name)), f"trainval wrote no {name}")
+            # the trainer's warm cycles, steps 2 on: from the previous step's
+            # end to this one's (loader, copies, log and event writes, step);
+            # the host gap is the part before the step starts. The first
+            # step, of a newly built model, is reported on its own.
+            ends = [r["start"] + r["ms"] / 1e3 for r in steps]
+            cycle = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+            gap = [1e3 * (r["start"] - a) for a, r in zip(ends, steps[1:])]
+            trainer_ms, gap_ms = sum(cycle) / len(cycle), sum(gap) / len(gap)
+            cycles = ", ".join("%.2f" % t for t in cycle)
+            val_ms = ", ".join("%.2f" % r["ms"] for r in vals)
+            print(f"[cli:train] one epoch in {train_s:.2f} s (model init, {FIXTURE_TRAIN_PAIRS} steps, validation, "
+                  f"snapshots); trainer {trainer_ms:.2f} ms/step over the warm steps 2-{FIXTURE_TRAIN_PAIRS} "
+                  f"({cycles} ms, each from the previous step's end), against {bare_ms:.2f} ms/step for phase 7's "
+                  f"bare train_step; host gap before a step {gap_ms:.2f} ms ({', '.join('%.2f' % t for t in gap)}); "
+                  f"first step {steps[0]['ms']:.2f} ms; validation {val_ms} ms/pair; no step skipped; "
+                  f"peak memory {train_peak:.2f} GiB")
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            test.main(["--benchmark", "val", "--snapshot", "epoch-1", "--device", "cuda"])
+            test_s = time.perf_counter() - t0
+            tests = records["test"]
+            check(len(tests) == FIXTURE_VAL_PAIRS, f"test: {len(tests)} pairs, expected {FIXTURE_VAL_PAIRS}")
+            for i, r in enumerate(tests):
+                check(r["launches"] == (2, 0, 1), f"test pair {i + 1}: expected 2 forward embedding and 1 Sinkhorn "
+                                                  f"launch, got {r['launches']}")
+            dumps = sorted(glob.glob(os.path.join(config.FEATURE_DIR, "val", "*.npz")))
+            check(len(dumps) == FIXTURE_VAL_PAIRS, f"test wrote {len(dumps)} .npz dumps")
+            for path in dumps:
+                with np.load(path) as data:
+                    missing = REQUIRED_NPZ_KEYS - set(data.keys())
+                    check(not missing, f"{os.path.basename(path)}: missing keys {missing}")
+                    check(np.isfinite(data["estimated_transform"]).all(), f"{path}: non-finite transform")
+            forward_s = sum(r["ms"] for r in tests) / 1e3
+            test_ms = ", ".join("%.2f" % r["ms"] for r in tests)
+            print(f"[cli:test] {len(tests)} pairs: {len(tests) / forward_s:.2f} pairs/s in the forward "
+                  f"({test_ms} ms/pair); {test_s:.2f} s in all (model, snapshot, "
+                  f"loader, dumps); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+                  f"{len(dumps)} .npz dumps with the full key set")
+
+            for method in ("lgr", "svd"):
+                summary = offline_eval.main(["--benchmark", "val", "--method", method])
+                values = {k: v for k, v in summary.items() if k != "scenes"}
+                check(all(math.isfinite(v) for v in values.values()), f"eval {method}: non-finite summary {values}")
+                check(0.0 <= values["RR"] <= 1.0, f"eval {method}: RR {values['RR']} outside [0, 1]")
+                print(f"[cli:eval] {method}: " + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    finally:
+        for (module, name), fn in zip(patched, originals):
+            setattr(module, name, fn)
+        for key, value in env.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
 
 
 def main():
@@ -468,6 +620,10 @@ def main():
           f"no step skipped")
     del model, state
     torch.cuda.empty_cache()
+
+    # 8. the CLI chain: trainval -> test -> eval on a fixture tree
+    for name, count in zip(launches, cli_chain(ck, dev, mean_ms)):
+        launches[name] += count
 
     sources = {"geo_embedding": ("geo_embedding.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:197"),
                "geo_embedding_bwd": ("geo_embedding_bwd.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:318"),

@@ -1,13 +1,16 @@
 """Register the demo pair with the PyTorch port.
 
     python -m ref_geotransformer_tpu_torch.demo [--full] [--iters N] [--device cuda]
+        [--ref_file F] [--src_file F] [--gt_file F] [--snapshot epoch-N.pth.tar] [--dump out.npz]
 
-Loads data/demo/{ref,src,gt}.npy, builds the point pyramid and runs the
-forward on the device, and prints the estimated transform, RRE/RTE against
-the ground truth and the steady-state time per pair. The counterpart of
-experiments/geotransformer_3dmatch_stage4/demo.py. The weights are random
-(seeded): no trained checkpoint ships with the repository, so RRE/RTE are
-meaningless; the run shows that the pipeline works end to end.
+Loads a pair (default data/demo/{ref,src,gt}.npy), builds the point pyramid
+and runs the forward on the device, and prints the estimated transform,
+RRE/RTE against the ground truth and the steady-state time per pair. The
+counterpart of experiments/geotransformer_3dmatch_stage4/demo.py. Without
+--snapshot (an epoch snapshot the port's trainer wrote) the weights are
+random (seeded): no trained checkpoint ships with the repository, so RRE/RTE
+are then meaningless; the run shows that the pipeline works end to end.
+--dump writes the estimated transform and the correspondences to a .npz.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ import torch
 from ref_geotransformer_tpu_torch.config import GeoTransformerConfig
 from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
 from ref_geotransformer_tpu_torch.data import build_registration_inputs, pad_points
+from ref_geotransformer_tpu_torch.engine.checkpoint import load_model_file
 from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
 from ref_geotransformer_tpu_torch.ops.metrics import isotropic_transform_error
 from ref_geotransformer_tpu_torch.utils.weights import init_parameters
@@ -30,22 +34,29 @@ from ref_geotransformer_tpu_torch.utils.weights import init_parameters
 DEMO_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "demo")
 
 
-def load_pair(cfg: GeoTransformerConfig, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The demo pair padded to the level-0 capacity, on `device`."""
+def load_pair(cfg: GeoTransformerConfig, device: torch.device, ref_file: Optional[str] = None,
+              src_file: Optional[str] = None, gt_file: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """A pair of .npy clouds (default: the demo pair) padded to the level-0
+    capacity, with its ground-truth transform, on `device`."""
+    files = {"ref": ref_file or os.path.join(DEMO_DIR, "ref.npy"), "src": src_file or os.path.join(DEMO_DIR, "src.npy")}
     cap0 = cfg.capacities.points[0]
     pair = {}
-    for name in ("ref", "src"):
-        points, masks = pad_points(np.load(os.path.join(DEMO_DIR, f"{name}.npy")).astype(np.float32), cap0)
+    for name, path in files.items():
+        points, masks = pad_points(np.load(path).astype(np.float32), cap0)
         pair[f"{name}_points"] = torch.from_numpy(points).to(device)
         pair[f"{name}_masks"] = torch.from_numpy(masks).to(device)
-    pair["transform"] = torch.from_numpy(np.load(os.path.join(DEMO_DIR, "gt.npy")).astype(np.float32)).to(device)
+    gt = np.load(gt_file or os.path.join(DEMO_DIR, "gt.npy")).astype(np.float32)
+    pair["transform"] = torch.from_numpy(gt).to(device)
     return pair
 
 
-def build_model(cfg: GeoTransformerConfig, device: torch.device, seed: int = 0, use_kernels: bool = True):
-    """GeoTransformer with random weights from a seeded generator, on `device`."""
+def build_model(cfg: GeoTransformerConfig, device: torch.device, seed: int = 0, use_kernels: bool = True,
+                snapshot: Optional[str] = None):
+    """GeoTransformer on `device`: the weights of `snapshot` (an epoch-N.pth.tar
+    file), or random ones from a seeded generator."""
     model = init_parameters(GeoTransformer(cfg, use_kernels=use_kernels), torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    return model if snapshot is None else load_model_file(snapshot, model)
 
 
 def register(model: GeoTransformer, cfg: GeoTransformerConfig, pair: Dict[str, torch.Tensor]) -> Dict:
@@ -59,19 +70,26 @@ def register(model: GeoTransformer, cfg: GeoTransformerConfig, pair: Dict[str, t
     return model(data)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--full", action="store_true", help="full 3DMatch capacities (default: demo capacities)")
     parser.add_argument("--iters", type=int, default=1, help="timed iterations")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
-    args = parser.parse_args()
+    parser.add_argument("--ref_file", default=None, help="reference cloud .npy (default: data/demo/ref.npy)")
+    parser.add_argument("--src_file", default=None, help="source cloud .npy (default: data/demo/src.npy)")
+    parser.add_argument("--gt_file", default=None, help="ground-truth 4x4 transform .npy (default: data/demo/gt.npy)")
+    parser.add_argument("--snapshot", default=None, help="epoch snapshot (epoch-N.pth.tar) to load")
+    parser.add_argument("--dump", default=None, help="dump the outputs to this .npz")
+    args = parser.parse_args(argv)
 
     device = torch.device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_cfg(demo=not args.full)
-    pair = load_pair(cfg, device)
-    model = build_model(cfg, device)
+    pair = load_pair(cfg, device, args.ref_file, args.src_file, args.gt_file)
+    model = build_model(cfg, device, snapshot=args.snapshot)
+    if args.snapshot:
+        print(f"loaded snapshot {args.snapshot}")
 
     def sync():
         if device.type == "cuda":
@@ -92,7 +110,12 @@ def main() -> None:
     rre, rte = isotropic_transform_error(pair["transform"], est)
     print("estimated transform:\n", est.cpu().numpy())
     print("gt transform:\n", pair["transform"].cpu().numpy())
-    print(f"RRE {float(rre):.3f} deg, RTE {float(rte):.4f} m (random weights: not a quality figure)")
+    weights = args.snapshot or "random weights: not a quality figure"
+    print(f"RRE {float(rre):.3f} deg, RTE {float(rte):.4f} m ({weights})")
+    if args.dump:
+        np.savez_compressed(args.dump, **{key: out[key].cpu().numpy() for key in (
+            "estimated_transform", "ref_corr_points", "src_corr_points", "corr_scores")})
+        print(f"dumped outputs to {args.dump}")
 
 
 if __name__ == "__main__":

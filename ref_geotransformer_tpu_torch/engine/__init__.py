@@ -1,2 +1,12 @@
 from ref_geotransformer_tpu_torch.engine.state import TrainState, lr_at
-from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, eval_step, train_step
+from ref_geotransformer_tpu_torch.engine.steps import (
+    ensure_pyramids,
+    eval_batch,
+    eval_step,
+    forward,
+    train_batch,
+    train_step,
+)
+from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
+from ref_geotransformer_tpu_torch.engine.trainer import EpochBasedTrainer
+from ref_geotransformer_tpu_torch.engine.tester import SingleTester

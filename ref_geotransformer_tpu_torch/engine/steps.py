@@ -1,14 +1,24 @@
-"""Train and eval steps for one (ref, src) pair, the reference's batch size.
+"""Train and eval steps, and the inference forward.
 
 Counterpart of `ref_geotransformer_tpu/engine/steps.py`: `pair` is either
 a raw padded pair (points, masks and "transform") or the input dict of
 `data.build_registration_inputs`; the pyramid is built on the pair's device.
+
+A batch from `data.loader.PairLoader` is a dict of (B, ...) numpy arrays
+plus "_pair_masks" (B,), False for the repeats that pad a final batch.
+On one card a batch is a loop over its pairs: pair i's loss is scaled by
+w_i / max(sum(w), 1) and backpropagated, then one guarded Adam update
+follows; eval metrics are weighted the same way. This is the JAX
+package's vmap-then-weighted-mean for any batch size. A pair of weight 0
+adds nothing and is not run. The arrays move to the device here, in the
+caller's thread: the loader's worker thread makes numpy arrays only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ref_geotransformer_tpu_torch.config import GeoTransformerConfig
@@ -30,19 +40,59 @@ def ensure_pyramids(cfg: GeoTransformerConfig, pair: Dict) -> Dict:
     )
 
 
+def to_device(pair: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A packed numpy pair -> tensors on `device`."""
+    return {key: torch.from_numpy(np.ascontiguousarray(value)).to(device) for key, value in pair.items()}
+
+
+def unstack_batch(batch: Dict[str, np.ndarray], device) -> Tuple[List[Dict[str, torch.Tensor]], List[float]]:
+    """A loader batch -> its pairs with weight > 0, on `device`, and their
+    weights w_i / max(sum(w), 1) (w = "_pair_masks", all ones without it)."""
+    batch = dict(batch)
+    masks = batch.pop("_pair_masks", None)
+    size = len(next(iter(batch.values())))
+    w = np.ones(size, np.float32) if masks is None else np.asarray(masks, np.float32)
+    denom = max(float(w.sum()), 1.0)
+    pairs, weights = [], []
+    for i in np.flatnonzero(w):
+        pairs.append(to_device({key: value[i] for key, value in batch.items()}, device))
+        weights.append(float(w[i]) / denom)
+    return pairs, weights
+
+
+def train_pairs(model, state: TrainState, pairs: Sequence[Dict], weights: Sequence[float],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """Forward with sampled targets, overall loss and backward of each pair,
+    its loss scaled by its weight; then one guarded Adam update. Returns the
+    weighted sums of the detached losses {"loss", "c_loss", "f_loss"}."""
+    cfg = model.cfg
+    state.zero_grad()
+    totals: Dict[str, torch.Tensor] = {}
+    for pair, weight in zip(pairs, weights):
+        data = ensure_pyramids(cfg, pair)
+        out = model(data, training=True, generator=generator)
+        losses = overall_loss(out, data["transform"], cfg.coarse_loss, cfg.fine_loss, cfg.loss)
+        (losses["loss"] * weight).backward()
+        for key, value in losses.items():
+            totals[key] = totals.get(key, 0.0) + value.detach() * weight
+    state.apply_gradients()
+    return totals
+
+
 def train_step(model, state: TrainState, pair: Dict, generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
-    """Forward with sampled targets, overall loss, backward and one guarded
-    Adam update. Returns the detached losses {"loss", "c_loss", "f_loss"};
-    `state.skipped` counts the steps the non-finite guard dropped."""
-    cfg = model.cfg
-    data = ensure_pyramids(cfg, pair)
-    state.zero_grad()
-    out = model(data, training=True, generator=generator)
-    losses = overall_loss(out, data["transform"], cfg.coarse_loss, cfg.fine_loss, cfg.loss)
-    losses["loss"].backward()
-    state.apply_gradients()
-    return {key: value.detach() for key, value in losses.items()}
+    """One pair (tensors on the model's device): forward with sampled
+    targets, overall loss, backward and one guarded Adam update. Returns the
+    detached losses; `state.skipped` counts the steps the non-finite guard
+    dropped."""
+    return train_pairs(model, state, [pair], [1.0], generator)
+
+
+def train_batch(model, state: TrainState, batch: Dict[str, np.ndarray],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """One loader batch: its pairs' weighted losses, one guarded Adam update."""
+    pairs, weights = unstack_batch(batch, next(model.parameters()).device)
+    return train_pairs(model, state, pairs, weights, generator)
 
 
 @torch.no_grad()
@@ -54,3 +104,20 @@ def eval_step(model, pair: Dict) -> Dict[str, torch.Tensor]:
     metrics = evaluate(out, data["transform"], cfg.eval)
     losses = overall_loss(out, data["transform"], cfg.coarse_loss, cfg.fine_loss, cfg.loss)
     return {**losses, **metrics}
+
+
+def eval_batch(model, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """One loader batch: the weighted means of its pairs' losses and metrics."""
+    pairs, weights = unstack_batch(batch, next(model.parameters()).device)
+    totals: Dict[str, torch.Tensor] = {}
+    for pair, weight in zip(pairs, weights):
+        for key, value in eval_step(model, pair).items():
+            totals[key] = totals.get(key, 0.0) + value * weight
+    return totals
+
+
+@torch.no_grad()
+def forward(model, cfg: GeoTransformerConfig, pair: Dict) -> Dict[str, torch.Tensor]:
+    """The inference forward of one pair (raw padded pair or prebuilt
+    inputs), the counterpart of `make_forward_fn(model, cfg)`."""
+    return model(ensure_pyramids(cfg, pair))

@@ -88,12 +88,19 @@ def test_init_parameters_is_seeded(jax_variables):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves JAX unimported."""
+    """Importing every module of the port leaves JAX unimported. The walk
+    reaches only packages with an __init__.py: it must reach the trainer,
+    the tester and the 3DMatch experiment's modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ref_geotransformer_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
+        "exp = 'experiments.geotransformer_3dmatch_stage4.'\n"
+        "want = {pkg.__name__ + '.' + n for n in ('engine.trainer', 'engine.tester', 'engine.checkpoint',\n"
+        "        'engine.cli', 'data.loader', 'data.datasets.threedmatch', 'utils.feature_dump', exp + 'config',\n"
+        "        exp + 'dataset', exp + 'trainval', exp + 'test', exp + 'eval', exp + 'fixture')}\n"
+        "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ref_geotransformer_tpu')\n"
