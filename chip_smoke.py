@@ -44,7 +44,22 @@ Phases; any failure raises and the script exits non-zero:
      offline eval with lgr and svd (finite summaries, RR in [0, 1]); the
      trainer's ms/step over its warm steps beside phase 7's, the host gap
      before each step, the first step on its own, the tester's pairs/s,
-     peak memory.
+     peak memory;
+  9. the LineMod encoder experiment (ModelNet rpmnet stage 4: 3 stages,
+     fine level 0, published widths and capacities 1024/640/256, 1000-point
+     clouds, f32) on a fixture BOP tree and a ModelNet fixture in a temporary
+     directory: each kernel against its plain version on one forward's own
+     inputs (the embedding forward and backward at N = 256, Sinkhorn at
+     64 x 129 x 129), with times and bounds; the f32 forward and one f32
+     AdamW train step, kernels against plain; trainval_encoder for 6
+     iterations (snapshot and validation on the 2 test frames every 3, a
+     2-iteration warmup: every step finite and applied, 2 + 2 embedding
+     launches a step, 1 Sinkhorn launch per validation pair, iter-3, iter-6
+     and the rolling snapshot written, the learning rate of every update and
+     of every log line the schedule's); test of iter-6 on 2 LineMod pairs
+     and 1 ModelNet pair (finite RRE/RTE, RR in [0, 1], 1 Sinkhorn launch a
+     pair); ms per training iteration and the host gap, the tester's
+     pairs/s, peak memory.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -53,12 +68,17 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TIMED_ITERS = 10
 TRAIN_STEPS = 3
 # phase 8: the fixture tree of the CLI chain
 FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, FIXTURE_POINTS = 4, 2, 15000
+# phase 9: the LineMod encoder experiment
+LINEMOD_TRAIN_FRAMES, LINEMOD_TEST_FRAMES = 4, 2
+LINEMOD_ITERATIONS, LINEMOD_SNAPSHOT_STEPS, LINEMOD_WARMUP = 6, 3, 2
+VAL_ITERS = 100  # the trainer's cap on a validation's batches: the 2 test frames all run
 # the keys each test dump must hold (tests/test_fixture_cli_e2e.py)
 REQUIRED_NPZ_KEYS = {
     "ref_points", "src_points", "ref_points_c", "src_points_c", "ref_feats_c", "src_feats_c",
@@ -311,6 +331,239 @@ def cli_chain(ck, dev, bare_ms):
     return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
 
 
+def expected_lr(optim, total, step):
+    """The warmup-cosine rate of update `step`, in float64 from its definition
+    (utils/torch.py:153-170 of the reference), to hold the port's against."""
+    import math
+
+    if step < optim.warmup_steps:
+        return optim.lr * (optim.eta_init + (1.0 - optim.eta_init) / optim.warmup_steps * step)
+    t = min(max((step - optim.warmup_steps) / max(total - optim.warmup_steps, 1), 0.0), 1.0)
+    return optim.lr * (optim.eta_min + 0.5 * (1.0 - optim.eta_min) * (1.0 + math.cos(math.pi * t)))
+
+
+def linemod_chain(ck, dev, card, kc):
+    """Phase 9 on the card; returns the kernel launches of its train,
+    validation and test passes. `kc` holds main's kernel checks."""
+    import math
+    import re
+    import tempfile
+    import time
+
+    import torch
+
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.datasets.linemod import LMODataset
+    from ref_geotransformer_tpu_torch.engine import iter_trainer
+    from ref_geotransformer_tpu_torch.engine.iter_trainer import make_warmup_cosine_schedule
+    from ref_geotransformer_tpu_torch.engine.state import AdamWTrainState
+    from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, to_device, train_step
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import (
+        config,
+        fixture,
+        test,
+        trainval_encoder,
+    )
+
+    records = {"train": [], "val": [], "test": []}
+
+    def counted(kind, fn):
+        """fn, recording for each call its start (host clock), its time to a
+        synchronize, its kernel launches, its result and, for a train step,
+        the optimizer's count before and after and the rate it applied."""
+        def wrapper(*args, **kwargs):
+            state = args[1] if kind == "train" else None
+            count = state.count if state is not None else None
+            before = read_counts(ck)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record = {"start": t0, "ms": 1e3 * (time.perf_counter() - t0), "out": out,
+                      "launches": tuple(x - y for x, y in zip(read_counts(ck), before))}
+            if state is not None:
+                record.update(count=(count, state.count), lr=state.optimizer.param_groups[0]["lr"])
+            records[kind].append(record)
+            return out
+        return wrapper
+
+    patched = [(iter_trainer, "train_batch"), (iter_trainer, "eval_batch"), (test, "forward")]
+    originals = [getattr(module, name) for module, name in patched]
+    for (module, name), kind in zip(patched, ("train", "val", "test")):
+        setattr(module, name, counted(kind, getattr(module, name)))
+    env = {key: os.environ.get(key) for key in ("REF_GT_LINEMOD_ROOT", "REF_GT_MODELNET_ROOT", "REF_GT_OUTPUT_ROOT",
+                                                "REF_GT_WARMUP", "REF_GT_LR")}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            lm_root, mn_root = os.path.join(tmp, "bop"), os.path.join(tmp, "modelnet")
+            fixture.make_linemod_tree(os.path.join(lm_root, "linemod"), n_train=LINEMOD_TRAIN_FRAMES,
+                                      n_test=LINEMOD_TEST_FRAMES)
+            fixture.make_modelnet_tree(mn_root)
+            for key in env:
+                os.environ.pop(key, None)
+            os.environ.update(REF_GT_LINEMOD_ROOT=lm_root, REF_GT_MODELNET_ROOT=mn_root,
+                              REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"), REF_GT_WARMUP=str(LINEMOD_WARMUP))
+            cfg = config.make_cfg()
+            print(f"[linemod] {card}: fixture BOP tree of {LINEMOD_TRAIN_FRAMES} train and {LINEMOD_TEST_FRAMES} "
+                  f"test frames (one box object), a ModelNet fixture of 3 shapes; caps {cfg.capacities.points}, "
+                  f"{config.LMO['points_limit']}-point clouds, K = {cfg.model.num_points_in_patch}, "
+                  f"{cfg.coarse_matching.num_correspondences} correspondences")
+
+            # 9.1 the kernels on one forward's own inputs
+            dataset = LMODataset(lm_root, data_augmentation=False, points_limit=config.LMO["points_limit"],
+                                 mode="test", seed=cfg.seed)
+            pair, _ = next(PairLoader(dataset, cfg).iter_single())
+            data = ensure_pyramids(cfg, to_device(pair, dev))
+            model = demo.build_model(cfg, dev, seed=0)
+            captured = {}
+            hook = model.optimal_transport.register_forward_pre_hook(
+                lambda module, inputs: captured.update(inputs=inputs))
+            model(data)
+            hook.remove()
+            nodes, node_masks = data["src"]["points"][-1], data["src"]["masks"][-1]
+            check(nodes.shape[0] == 256, f"linemod: {nodes.shape[0]} src nodes, expected 256")
+            kc.check_embedding(model, nodes, node_masks)
+            ot = model.optimal_transport
+            with torch.no_grad():
+                padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+            check(tuple(padded.shape) == (64, 129, 129), f"linemod: Sinkhorn batch {tuple(padded.shape)}")
+            sinkhorn = kc.check_sinkhorn("LineMod path", padded, log_mu, log_nu, ot.num_iterations)
+            gt = cfg.geotransformer
+            rows = {"geo_embedding": (kc.emb_rows[-1][2], kc.roofline(*kc.embedding_work(256, gt.angle_k,
+                                      gt.hidden_dim, backward=False), kc.peak_product)[0]),
+                    "geo_embedding_bwd": (kc.bwd_rows[-1][3], kc.roofline(*kc.embedding_work(256, gt.angle_k,
+                                          gt.hidden_dim, backward=True), kc.peak_product)[0]),
+                    "sinkhorn": (sinkhorn["ms"], sinkhorn["bound_ms"])}
+            for name, (ms, bound_ms) in rows.items():
+                print(f"[linemod:kernel] {card}: {name} at the LineMod shapes: {ms:.4f} ms against a bound of "
+                      f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it")
+            del model, captured, padded, log_mu, log_nu
+
+            # 9.2 the f32 forward and one f32 AdamW train step, kernels against plain
+            with_kernels = demo.build_model(cfg, dev, seed=1)
+            plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
+            a, b = with_kernels(data), plain(data)
+            torch.cuda.synchronize()
+            feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+            print(f"[linemod:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
+                  f"(bound {PATH_FEATS_BOUND:.0e})")
+            check(feats_err <= PATH_FEATS_BOUND, f"linemod forward: ref_feats_c differs by {feats_err}")
+            check(bool(torch.isfinite(a["estimated_transform"]).all()), "linemod forward: non-finite transform")
+            del a, b
+            schedule = make_warmup_cosine_schedule(cfg.optim.lr, LINEMOD_ITERATIONS, cfg.optim.warmup_steps,
+                                                   cfg.optim.eta_init, cfg.optim.eta_min)
+            grads, step_losses = [], []
+            for model in (with_kernels, plain):
+                state = AdamWTrainState(model, cfg.optim, schedule)
+                losses = train_step(model, state, data, torch.Generator(device=dev).manual_seed(5))
+                check(state.count == 1 and state.skipped == 0, "linemod f32 train step: the update was skipped")
+                step_losses.append({key: float(v) for key, v in losses.items()})
+                emb = model.transformer.embedding
+                grads.append({f"{proj}.{leaf}": getattr(getattr(emb, proj), leaf).grad
+                              for proj in ("proj_d", "proj_a") for leaf in ("weight", "bias")})
+            loss_err = max(abs(step_losses[0][key] - step_losses[1][key]) / abs(step_losses[1][key])
+                           for key in ("loss", "c_loss", "f_loss"))
+            grad_scale = max(float(g.abs().max()) for g in grads[1].values())
+            grad_errs = {name: float((g - grads[1][name]).abs().max()) / grad_scale for name, g in grads[0].items()}
+            print(f"[linemod:f32] {card}: AdamW train step, kernels vs plain: loss {step_losses[0]['loss']:.6f} vs "
+                  f"{step_losses[1]['loss']:.6f}; losses within {loss_err:.3e} relative (bound "
+                  f"{TRAIN_LOSS_BOUND:.0e}); embedding gradients (largest magnitude {grad_scale:.3e}), error over it: "
+                  + ", ".join(f"{name} {e:.3e}" for name, e in grad_errs.items()) + f" (bound {TRAIN_GRAD_BOUND:.0e})")
+            check(all(math.isfinite(v) for s in step_losses for v in s.values()), "linemod f32 train: non-finite loss")
+            check(loss_err <= TRAIN_LOSS_BOUND, f"linemod f32 train: losses differ by {loss_err}")
+            check(all(e <= TRAIN_GRAD_BOUND for e in grad_errs.values()),
+                  f"linemod f32 train: gradients differ: {grad_errs}")
+            del with_kernels, plain, grads, data
+            torch.cuda.empty_cache()
+
+            # 9.3 trainval_encoder
+            reset_counts(ck)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            trainer = trainval_encoder.main(["--max_iteration", str(LINEMOD_ITERATIONS), "--snapshot_steps",
+                                             str(LINEMOD_SNAPSHOT_STEPS), "--log_steps", "1", "--device", "cuda"])
+            train_s = time.perf_counter() - t0
+            train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            steps, vals = records["train"], records["val"]
+            check(len(steps) == LINEMOD_ITERATIONS, f"trainval_encoder: {len(steps)} steps, expected "
+                                                    f"{LINEMOD_ITERATIONS}")
+            for i, r in enumerate(steps):
+                values = {key: float(v) for key, v in r["out"].items()}
+                want_lr = expected_lr(cfg.optim, LINEMOD_ITERATIONS, i)
+                print(f"[linemod:train] iteration {i + 1}: loss {values['loss']:.6f}, c_loss {values['c_loss']:.6f}, "
+                      f"f_loss {values['f_loss']:.6f}; lr {r['lr']:.6e} (schedule {want_lr:.6e}); {r['ms']:.2f} ms "
+                      f"to a synchronize; launches: geo_embedding {r['launches'][0]}, geo_embedding_bwd "
+                      f"{r['launches'][1]}, sinkhorn {r['launches'][2]}")
+                check(all(math.isfinite(v) for v in values.values()), f"iteration {i + 1}: non-finite loss")
+                check(r["count"] == (i, i + 1), f"iteration {i + 1}: update not applied (count {r['count']})")
+                check(abs(r["lr"] - want_lr) <= 1e-6 * want_lr, f"iteration {i + 1}: lr {r['lr']}, schedule {want_lr}")
+                check(r["launches"] == (2, 2, 0), f"iteration {i + 1}: expected 2 forward, 2 backward embedding "
+                                                  f"launches and no Sinkhorn launch, got {r['launches']}")
+            check(trainer.state.skipped == 0 and trainer.state.count == LINEMOD_ITERATIONS,
+                  f"trainval_encoder: {trainer.state.skipped} skipped, {trainer.state.count} applied")
+            expected_vals = LINEMOD_ITERATIONS // LINEMOD_SNAPSHOT_STEPS * min(VAL_ITERS, LINEMOD_TEST_FRAMES)
+            check(len(vals) == expected_vals, f"trainval_encoder: {len(vals)} validation pairs, expected {expected_vals}")
+            for i, r in enumerate(vals):
+                check(r["launches"] == (2, 0, 1), f"validation pair {i + 1}: expected 2 forward embedding and 1 "
+                                                  f"Sinkhorn launch, got {r['launches']}")
+                check(all(math.isfinite(float(v)) for v in r["out"].values()), f"validation pair {i + 1}: non-finite")
+            for name in ("iter-3.pth.tar", "iter-6.pth.tar", "snapshot.pth.tar"):
+                check(os.path.isfile(os.path.join(config.SNAPSHOT_ENCODER_DIR, name)), f"trainval wrote no {name}")
+            with open(os.path.join(config.LOG_DIR, "train_encoder.log")) as f:
+                logged = [float(m.group(1)) for m in re.finditer(r"iter: \d+/\d+,.* lr: ([-\d.e+]+)", f.read())]
+            want_logged = [expected_lr(cfg.optim, LINEMOD_ITERATIONS, i) for i in range(1, LINEMOD_ITERATIONS + 1)]
+            check(len(logged) == LINEMOD_ITERATIONS and all(abs(x - y) <= 5e-4 * y for x, y in
+                                                            zip(logged, want_logged)),
+                  f"train_encoder.log: logged rates {logged}, schedule {want_logged}")
+            ends = [r["start"] + r["ms"] / 1e3 for r in steps]
+            gap = [1e3 * (r["start"] - e) for e, r in zip(ends, steps[1:])]
+            snap = {LINEMOD_SNAPSHOT_STEPS * k for k in range(1, LINEMOD_ITERATIONS // LINEMOD_SNAPSHOT_STEPS + 1)}
+            plain_gaps = [g for i, g in enumerate(gap, start=1) if i not in snap]
+            warm_ms = [r["ms"] for r in steps[1:]]
+            val_ms = ", ".join("%.2f" % r["ms"] for r in vals)
+            print(f"[linemod:train] {card}: {LINEMOD_ITERATIONS} iterations in {train_s:.2f} s (model init, "
+                  f"snapshots, validation); {sum(warm_ms) / len(warm_ms):.2f} ms per training iteration over the warm "
+                  f"iterations 2-{LINEMOD_ITERATIONS} ({', '.join('%.2f' % t for t in warm_ms)} ms to a "
+                  f"synchronize); host gap before an iteration {sum(plain_gaps) / len(plain_gaps):.2f} ms "
+                  f"({', '.join('%.2f' % t for t in plain_gaps)}; after a snapshot and validation: "
+                  f"{', '.join('%.2f' % gap[i - 1] for i in sorted(snap) if i <= len(gap))}); first iteration "
+                  f"{steps[0]['ms']:.2f} ms; validation {val_ms} ms/pair; logged rates {logged}; "
+                  f"peak memory {train_peak:.2f} GiB")
+
+            # 9.4 test on LineMod and on ModelNet
+            torch.cuda.reset_peak_memory_stats(dev)
+            summaries = {}
+            for name, extra, pairs in (("LineMod", [], 2), ("ModelNet", ["--use_modelnet"], 1)):
+                first = len(records["test"])
+                t0 = time.perf_counter()
+                summary = test.main(["--snapshot", f"iter-{LINEMOD_ITERATIONS}", "--num_pairs", str(pairs),
+                                     "--device", "cuda", *extra])
+                test_s = time.perf_counter() - t0
+                tests = records["test"][first:]
+                check(len(tests) == pairs, f"test {name}: {len(tests)} pairs, expected {pairs}")
+                for i, r in enumerate(tests):
+                    check(r["launches"] == (2, 0, 1), f"test {name} pair {i + 1}: expected 2 forward embedding and "
+                                                      f"1 Sinkhorn launch, got {r['launches']}")
+                check(math.isfinite(summary["RRE"]) and math.isfinite(summary["RTE"]),
+                      f"test {name}: non-finite RRE/RTE {summary}")
+                check(0.0 <= summary["RR"] <= 1.0, f"test {name}: RR {summary['RR']} outside [0, 1]")
+                forward_s = sum(r["ms"] for r in tests) / 1e3
+                summaries[name] = summary
+                print(f"[linemod:test] {card}: {name}, {pairs} pairs: {pairs / forward_s:.2f} pairs/s in the forward "
+                      f"({', '.join('%.2f' % r['ms'] for r in tests)} ms/pair), {test_s:.2f} s in all (model, "
+                      f"snapshot, dataset); RRE {summary['RRE']:.3f} deg, RTE {summary['RTE']:.4f}, RR "
+                      f"{summary['RR']:.2f} (random weights, 6 iterations: not a quality figure)")
+            print(f"[linemod:test] {card}: peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    finally:
+        for (module, name), fn in zip(patched, originals):
+            setattr(module, name, fn)
+        for key, value in env.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
+
+
 def main():
     import torch
 
@@ -337,7 +590,8 @@ def main():
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, check=True)
@@ -356,7 +610,7 @@ def main():
 
     # 3. kernels against their plain versions, at main-path shapes
     results = {}
-    emb_rows, bwd_rows = [], []
+    emb_rows, bwd_rows, sinkhorn_errs = [], [], []
 
     def check_embedding(model, nodes, node_masks):
         """The forward and backward kernels on one node cloud, against their plain versions."""
@@ -423,6 +677,7 @@ def main():
               f"entries (bound {SINKHORN_BOUND:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
               f"{bound_ms:.4f} ms, set by the {term}: {100 * bound_ms / ms:.1f}% of it")
         check(err <= SINKHORN_BOUND, f"sinkhorn {m1}x{n1}: error {err} above {SINKHORN_BOUND}")
+        sinkhorn_errs.append(err)
         check(masked_ok, f"sinkhorn {m1}x{n1}: a masked entry came out above -1e11")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None}
@@ -624,6 +879,18 @@ def main():
     # 8. the CLI chain: trainval -> test -> eval on a fixture tree
     for name, count in zip(launches, cli_chain(ck, dev, mean_ms)):
         launches[name] += count
+
+    # 9. the LineMod encoder experiment: trainval_encoder -> test
+    kc = types.SimpleNamespace(check_embedding=check_embedding, check_sinkhorn=check_sinkhorn, emb_rows=emb_rows,
+                               bwd_rows=bwd_rows, roofline=roofline, embedding_work=embedding_work,
+                               peak_product=PEAK_F32_PRODUCT_FLOPS)
+    for name, count in zip(launches, linemod_chain(ck, dev, card, kc)):
+        launches[name] += count
+    # each kernel's largest error over every shape it was held at, phase 9's included
+    results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)
+    results["geo_embedding_bwd"]["max_abs_err"] = max(r[1] for r in bwd_rows)
+    results["geo_embedding_bwd"]["max_rel_err"] = max(r[2] for r in bwd_rows)
+    results["sinkhorn"]["max_abs_err"] = max(sinkhorn_errs)
 
     sources = {"geo_embedding": ("geo_embedding.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:197"),
                "geo_embedding_bwd": ("geo_embedding_bwd.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:318"),

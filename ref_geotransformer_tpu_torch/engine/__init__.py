@@ -1,4 +1,4 @@
-from ref_geotransformer_tpu_torch.engine.state import TrainState, lr_at
+from ref_geotransformer_tpu_torch.engine.state import AdamWTrainState, TrainState, lr_at
 from ref_geotransformer_tpu_torch.engine.steps import (
     ensure_pyramids,
     eval_batch,
@@ -10,3 +10,4 @@ from ref_geotransformer_tpu_torch.engine.steps import (
 from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
 from ref_geotransformer_tpu_torch.engine.trainer import EpochBasedTrainer
 from ref_geotransformer_tpu_torch.engine.tester import SingleTester
+from ref_geotransformer_tpu_torch.engine.iter_trainer import IterBasedEncoderTrainer, make_warmup_cosine_schedule

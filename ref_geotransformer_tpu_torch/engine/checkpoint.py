@@ -3,12 +3,12 @@
 Counterpart of `ref_geotransformer_tpu/engine/checkpoint.py` (orbax there):
 
     <snapshot_dir>/epoch-<N>.pth.tar : {"model": state_dict}
-    <snapshot_dir>/snapshot.pth.tar  : {"model", "optimizer" (Adam), "count",
+    <snapshot_dir>/snapshot.pth.tar  : {"model", "optimizer" (Adam or AdamW), "count",
                                         "skipped", "generator", "epoch",
                                         "iteration"}
 
-The Adam state is `torch.optim.Adam.state_dict()`, keyed by the position of
-each parameter in `TrainState.params` (the model's parameter order), so it
+The optimizer state is its `state_dict()`, keyed by the position of
+each parameter in the state's `params` (the model's parameter order), so it
 restores onto a model of the same configuration. "generator" is the state
 of the trainer's target sampler, so a resumed run draws the targets an
 uninterrupted one would. Each file is written to a temporary name and
@@ -79,7 +79,7 @@ class CheckpointManager:
 
     def load_snapshot(self, model: nn.Module, state, generator: Optional[torch.Generator] = None
                       ) -> Tuple[int, int]:
-        """Restore model, Adam state, counts and the generator in place;
+        """Restore model, optimizer state, counts and the generator in place;
         returns (epoch, iteration)."""
         payload = load_file(self._path("snapshot"), model_device(model))
         model.load_state_dict(payload["model"], strict=True)

@@ -40,6 +40,17 @@ def trainval_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def iter_trainval_parser() -> argparse.ArgumentParser:
+    """Parser of the iteration-based trainers (ref parity:
+    base_trainer.py:21-29 plus the fork's iteration knobs,
+    iter_based_trainer.py:41-210)."""
+    parser = trainval_parser()
+    parser.add_argument("--max_iteration", type=int, default=None)
+    parser.add_argument("--snapshot_steps", type=int, default=None)
+    parser.add_argument("--use_modelnet", action="store_true", help="train on ModelNet pairs instead of LineMod")
+    return parser
+
+
 def check_single_device(args) -> None:
     if (args.num_devices or 1) > 1 or args.multihost:
         raise NotImplementedError("data-parallel and multi-host training (--num_devices > 1, --multihost) are not "

@@ -1,15 +1,22 @@
-"""Train state: Adam with coupled L2 decay, a staircase learning-rate
-schedule and the non-finite-gradient guard.
+"""Train states: Adam with coupled L2 decay under a staircase schedule, and
+AdamW under any schedule of the step, both behind one non-finite-gradient
+guard.
 
-Counterpart of `ref_geotransformer_tpu/engine/state.py`. `torch.optim.Adam`
-with `weight_decay` adds the decay to the gradient before the moments, as
-optax's `add_decayed_weights` followed by `adam` does. A step whose
-gradients hold any non-finite value is skipped whole, as under
-`optax.apply_if_finite`: parameters, Adam moments and the schedule's count
-stay as they were.
+Counterpart of `ref_geotransformer_tpu/engine/state.py` and of the AdamW
+state the iteration-based entry points build
+(`experiments/geotransformer_modelnet_rpmnet_stage4/trainval_encoder.py:48-50`).
+`torch.optim.Adam` with `weight_decay` adds the decay to the gradient before
+the moments, as optax's `add_decayed_weights` followed by `adam` does;
+`torch.optim.AdamW` subtracts lr * weight_decay * p beside the Adam update,
+as `optax.adamw` does (decoupled decay, scaled by the scheduled rate). A
+step whose gradients hold any non-finite value is skipped whole, as under
+`optax.apply_if_finite`: parameters, moments and the schedule's count stay
+as they were.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch import nn
@@ -23,31 +30,31 @@ def lr_at(cfg: OptimConfig, count: int, steps_per_epoch: int) -> float:
     return cfg.lr * cfg.lr_decay ** (count // max(1, cfg.lr_decay_steps * steps_per_epoch))
 
 
-class TrainState:
-    """The optimizer of `model`'s parameters and its counts: `count`
-    applied updates (the schedule's step) and `skipped` non-finite steps."""
+class GuardedState:
+    """The optimizer of `model`'s parameters and its counts: `count` applied
+    updates (the schedule's step) and `skipped` non-finite steps. A subclass
+    gives `lr()`, the learning rate at `count`."""
 
-    def __init__(self, model: nn.Module, cfg: OptimConfig, steps_per_epoch: int):
+    def __init__(self, model: nn.Module, cfg: OptimConfig, optimizer_cls, **optimizer_kwargs):
         if cfg.grad_acc_steps > 1:
             raise NotImplementedError("gradient accumulation (grad_acc_steps > 1) is not ported")
         self.cfg = cfg
-        self.steps_per_epoch = steps_per_epoch
         self.count = 0
         self.skipped = 0
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.optimizer = torch.optim.Adam(self.params, lr=self.lr(), weight_decay=cfg.weight_decay)
+        self.optimizer = optimizer_cls(self.params, lr=self.lr(), **optimizer_kwargs)
 
     def lr(self) -> float:
         """The learning rate of the next applied update."""
-        return lr_at(self.cfg, self.count, self.steps_per_epoch)
+        raise NotImplementedError
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
     def apply_gradients(self) -> bool:
-        """One Adam update from the parameters' `.grad` (a parameter the loss
-        did not reach counts as a zero gradient, as under `jax.grad`), unless
-        a gradient is non-finite. Returns whether the update was applied."""
+        """One optimizer update from the parameters' `.grad` (a parameter the
+        loss did not reach counts as a zero gradient, as under `jax.grad`),
+        unless a gradient is non-finite. Returns whether the update was applied."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -61,3 +68,25 @@ class TrainState:
         self.optimizer.step()
         self.count += 1
         return True
+
+
+class TrainState(GuardedState):
+    """Adam with coupled L2 decay, its rate a staircase over epochs."""
+
+    def __init__(self, model: nn.Module, cfg: OptimConfig, steps_per_epoch: int):
+        self.steps_per_epoch = steps_per_epoch
+        super().__init__(model, cfg, torch.optim.Adam, weight_decay=cfg.weight_decay)
+
+    def lr(self) -> float:
+        return lr_at(self.cfg, self.count, self.steps_per_epoch)
+
+
+class AdamWTrainState(GuardedState):
+    """AdamW with decoupled decay, its rate `schedule(count)`."""
+
+    def __init__(self, model: nn.Module, cfg: OptimConfig, schedule: Callable[[int], float]):
+        self.schedule = schedule
+        super().__init__(model, cfg, torch.optim.AdamW, weight_decay=cfg.weight_decay)
+
+    def lr(self) -> float:
+        return self.schedule(self.count)

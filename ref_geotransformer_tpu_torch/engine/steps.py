@@ -7,7 +7,7 @@ a raw padded pair (points, masks and "transform") or the input dict of
 A batch from `data.loader.PairLoader` is a dict of (B, ...) numpy arrays
 plus "_pair_masks" (B,), False for the repeats that pad a final batch.
 On one card a batch is a loop over its pairs: pair i's loss is scaled by
-w_i / max(sum(w), 1) and backpropagated, then one guarded Adam update
+w_i / max(sum(w), 1) and backpropagated, then one guarded optimizer update
 follows; eval metrics are weighted the same way. This is the JAX
 package's vmap-then-weighted-mean for any batch size. A pair of weight 0
 adds nothing and is not run. The arrays move to the device here, in the
@@ -23,7 +23,7 @@ import torch
 
 from ref_geotransformer_tpu_torch.config import GeoTransformerConfig
 from ref_geotransformer_tpu_torch.data.pyramid import build_registration_inputs
-from ref_geotransformer_tpu_torch.engine.state import TrainState
+from ref_geotransformer_tpu_torch.engine.state import GuardedState
 from ref_geotransformer_tpu_torch.models.losses import evaluate, overall_loss
 
 
@@ -60,10 +60,10 @@ def unstack_batch(batch: Dict[str, np.ndarray], device) -> Tuple[List[Dict[str, 
     return pairs, weights
 
 
-def train_pairs(model, state: TrainState, pairs: Sequence[Dict], weights: Sequence[float],
+def train_pairs(model, state: GuardedState, pairs: Sequence[Dict], weights: Sequence[float],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """Forward with sampled targets, overall loss and backward of each pair,
-    its loss scaled by its weight; then one guarded Adam update. Returns the
+    its loss scaled by its weight; then one guarded optimizer update. Returns the
     weighted sums of the detached losses {"loss", "c_loss", "f_loss"}."""
     cfg = model.cfg
     state.zero_grad()
@@ -79,18 +79,18 @@ def train_pairs(model, state: TrainState, pairs: Sequence[Dict], weights: Sequen
     return totals
 
 
-def train_step(model, state: TrainState, pair: Dict, generator: Optional[torch.Generator] = None
+def train_step(model, state: GuardedState, pair: Dict, generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
     """One pair (tensors on the model's device): forward with sampled
-    targets, overall loss, backward and one guarded Adam update. Returns the
+    targets, overall loss, backward and one guarded optimizer update. Returns the
     detached losses; `state.skipped` counts the steps the non-finite guard
     dropped."""
     return train_pairs(model, state, [pair], [1.0], generator)
 
 
-def train_batch(model, state: TrainState, batch: Dict[str, np.ndarray],
+def train_batch(model, state: GuardedState, batch: Dict[str, np.ndarray],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """One loader batch: its pairs' weighted losses, one guarded Adam update."""
+    """One loader batch: its pairs' weighted losses, one guarded optimizer update."""
     pairs, weights = unstack_batch(batch, next(model.parameters()).device)
     return train_pairs(model, state, pairs, weights, generator)
 

@@ -1,0 +1,4 @@
+"""ModelNet rpmnet stage 4, trained on LineMod: the encoder phase,
+`trainval_encoder` and `test` (the counterparts of
+`experiments/geotransformer_modelnet_rpmnet_stage4/{trainval_encoder,test}.py`),
+with `config`, `dataset` and the synthetic `fixture` trees."""

@@ -1,0 +1,65 @@
+"""LineMod/ModelNet test of the encoder: RRE, RTE and RR (RRE < 1 deg and
+RTE < 0.1) over the test pairs.
+
+    python -m ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4.test \
+        --snapshot iter-N [--num_pairs P] [--use_modelnet] [--device cuda]
+
+Counterpart of the encoder half of
+`experiments/geotransformer_modelnet_rpmnet_stage4/test.py` (ref parity:
+experiments/geotransformer.modelnet.../test.py): per pair the inference
+forward, then `evaluate` with the experiment's `recall_criterion="rre_rte"`;
+prints the means. `--snapshot` names an `iter-N` file of the encoder
+snapshots (SNAPSHOT_ENCODER_DIR). The Cordi half (`--cordi_snapshot`) is
+not ported yet and raises.
+"""
+
+import argparse
+import itertools
+
+import torch
+
+from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
+from ref_geotransformer_tpu_torch.engine.steps import forward, to_device
+from ref_geotransformer_tpu_torch.engine.trainer import to_floats
+from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import config
+from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4.dataset import test_data_loader
+from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
+from ref_geotransformer_tpu_torch.models.losses import evaluate
+from ref_geotransformer_tpu_torch.utils.summary_board import SummaryBoard
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--snapshot", required=True, help="encoder snapshot (e.g. iter-100000)")
+    parser.add_argument("--cordi_snapshot", default=None, help="not ported yet: raises NotImplementedError")
+    parser.add_argument("--use_modelnet", action="store_true")
+    parser.add_argument("--num_pairs", type=int, default=None, help="cap evaluated pairs")
+    parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    """Returns the summary (means of the per-pair metrics)."""
+    args = parse_args(argv)
+    if args.cordi_snapshot:
+        raise NotImplementedError("--cordi_snapshot: Cordi is not ported yet (ROADMAP, queue 1, item 4: Cordi)")
+    cfg = config.make_cfg()
+    device = torch.device(args.device)
+    model = GeoTransformer(cfg).to(device)
+    CheckpointManager(config.SNAPSHOT_ENCODER_DIR).load_model(args.snapshot, model)
+
+    board = SummaryBoard(adaptive=True)
+    pairs = test_data_loader(cfg, use_modelnet=args.use_modelnet).iter_single()
+    if args.num_pairs:
+        pairs = itertools.islice(pairs, args.num_pairs)
+    for data, _ in pairs:
+        pair = to_device(data, device)
+        output = forward(model, cfg, pair)
+        board.update_from_result_dict(to_floats(evaluate(output, pair["transform"], cfg.eval)))
+    summary = board.summary()
+    print({k: round(v, 4) for k, v in summary.items()})
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -26,9 +26,7 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
-import ref_geotransformer_tpu_torch.models.geotransformer as port_geotransformer
 from ref_geotransformer_tpu.data import PairLoader as JaxPairLoader
 from ref_geotransformer_tpu.data import pack_pair as jax_pack_pair
 from ref_geotransformer_tpu.data.datasets import ThreeDMatchPairDataset as JaxDataset
@@ -49,7 +47,7 @@ from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4.fixt
 from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
 from ref_geotransformer_tpu_torch.utils.feature_dump import dump_registration_npz
 from ref_geotransformer_tpu_torch.utils.weights import load_jax_variables
-from tests.torch_port_utils import ROOT, demo_crop, port_config, tiny4_config
+from tests.torch_port_utils import ROOT, demo_crop, jax_target_keys, port_config, port_target_keys, tiny4_config
 
 LOSS_RTOL = 1e-4  # per-step losses of the two trainers, relative
 TRAJECTORY_STEPS = 3
@@ -89,23 +87,7 @@ def _jax_trajectory(cfg, root, batch_size, keys, snapshot_dir):
     losses = []
     trainer.after_step_hooks.append(lambda t, step_losses: losses.append(
         {key: float(value) for key, value in step_losses.items()}))
-    order = {}
-
-    def host_keys(key_data):
-        index = order.setdefault(tuple(np.asarray(key_data).ravel().tolist()), len(order))
-        return keys[index]
-
-    uniform = jax.random.uniform
-
-    def patched_uniform(key, shape=(), *args, **kwargs):
-        if tuple(shape) != keys.shape[1:]:
-            return uniform(key, shape, *args, **kwargs)
-        key_data = jax.random.key_data(key) if jax.dtypes.issubdtype(key.dtype, jax.dtypes.prng_key) else key
-        return jax.pure_callback(host_keys, jax.ShapeDtypeStruct(keys.shape[1:], jnp.float32), key_data,
-                                 vmap_method="sequential")
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax.random, "uniform", patched_uniform)
+    with jax_target_keys(keys) as order:
         with jax.default_matmul_precision("highest"):
             trainer.run()
     return variables, losses, len(order)
@@ -122,15 +104,12 @@ def _port_trajectory(cfg, root, batch_size, keys, variables, snapshot_dir):
     losses, pair_in_step = [], [0]
     trainer.before_step_hooks.append(lambda t, batch: pair_in_step.__setitem__(0, 0))
     trainer.after_step_hooks.append(lambda t, step_losses: losses.append(step_losses))
-    sample = port_geotransformer.superpoint_target_sample
 
-    def sample_with_keys(*args, generator=None):
-        index = trainer.iteration * batch_size + pair_in_step[0]
+    def next_index():
         pair_in_step[0] += 1
-        return sample(*args, keys=torch.from_numpy(keys[index]))
+        return trainer.iteration * batch_size + pair_in_step[0] - 1
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_geotransformer, "superpoint_target_sample", sample_with_keys)
+    with port_target_keys(keys, next_index):
         trainer.run()
     return losses, trainer
 

@@ -447,3 +447,95 @@ def test_embedding_module_backward_launches_both_kernels_on_card():
     plain(points, masks).square().sum().backward()
     for (name, p), q in zip(module.named_parameters(), plain.parameters()):
         assert float((p.grad - q.grad).abs().max()) <= 1e-3 * float(q.grad.abs().max()), name
+
+
+# ---------------------------------------------------------------------------
+# On the card, at the LineMod encoder's shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def linemod_path(tmp_path_factory):
+    """One inference forward of the LineMod encoder (published widths and
+    capacities, seeded random weights) on a fixture frame, on the card: the
+    model, the src cloud's coarse nodes (N = 256, the level-2 capacity,
+    most of them filled by the box's mesh sample) and the inputs of its
+    optimal-transport layer (64 patches of 128 points and the dustbin)."""
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.config.modelnet import make_cfg
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.datasets.linemod import LMODataset
+    from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, to_device
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4.fixture import (
+        make_linemod_tree,
+    )
+
+    dev = _cuda()
+    root = tmp_path_factory.mktemp("lm")
+    make_linemod_tree(str(root / "linemod"), n_train=1, n_test=1)
+    cfg = make_cfg()
+    dataset = LMODataset(str(root), data_augmentation=False, points_limit=1000, mode="test", seed=cfg.seed)
+    pair, _ = next(PairLoader(dataset, cfg).iter_single())
+    data = ensure_pyramids(cfg, to_device(pair, dev))
+    model = demo.build_model(cfg, dev, seed=0)
+    captured = {}
+    hook = model.optimal_transport.register_forward_pre_hook(lambda module, inputs: captured.update(inputs=inputs))
+    model(data)
+    hook.remove()
+    nodes, node_masks = data["src"]["points"][-1], data["src"]["masks"][-1]
+    assert nodes.shape[0] == 256 and int(node_masks.sum()) > 128
+    return model, nodes, node_masks, captured["inputs"]
+
+
+@pytest.mark.cuda
+def test_embedding_kernels_match_plain_at_linemod_shapes(linemod_path):
+    """Forward and backward at N = 256, C = 256, k = 3 on the LineMod node
+    cloud (a ~10 cm object 0.6-0.9 m from the camera; sigma_d 0.2 m), the
+    model's own weights and anchor vectors, a seeded cotangent."""
+    model, nodes, node_masks, _ = linemod_path
+    dev = nodes.device
+    with torch.no_grad():
+        (args,) = model.transformer.embedding.kernel_args(nodes[None], node_masks[None])
+        launches = cuda_kernels.geometric_embedding.launches
+        got = cuda_kernels.geometric_embedding(*args)
+        torch.cuda.synchronize()
+        assert cuda_kernels.geometric_embedding.launches == launches + 1
+        want = cuda_kernels.geometric_embedding_plain(*args)
+    assert got.shape == (256, 256, 256)
+    err = float((got - want).abs().max())
+    assert err <= EMBEDDING_KERNEL_BOUND, f"forward: max abs error {err:.3e} against the plain version"
+
+    points, ref_vectors, div_term, _, _, wa, ba, sigma_d, factor_a, _ = args
+    geometry = (points, ref_vectors, div_term, wa.detach(), ba.detach())
+    g = torch.randn((256, 256, 256), generator=torch.Generator(device=dev).manual_seed(256), device=dev)
+    g = torch.where(cuda_kernels.near_ties(*geometry, sigma_d, factor_a, NEAR_TIE), 0.0, g)
+    bwd_args = (*geometry, g, sigma_d, factor_a)
+    launches = cuda_kernels.geometric_embedding_bwd.launches
+    got = cuda_kernels.geometric_embedding_bwd(*bwd_args)
+    again = cuda_kernels.geometric_embedding_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.geometric_embedding_bwd.launches == launches + 2
+    want = cuda_kernels.geometric_embedding_bwd_plain(*bwd_args)
+    for name, x, y, z in zip(("dwd", "dbd", "dwa", "dba"), got, again, want):
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        err = float((x - z).abs().max()) / float(z.abs().max())
+        assert err <= EMBEDDING_BWD_BOUND, f"{name}: error {err:.3e} of the largest magnitude against the plain version"
+
+
+@pytest.mark.cuda
+def test_sinkhorn_kernel_matches_plain_at_linemod_shapes(linemod_path):
+    """(64, 129, 129), 100 iterations, on the forward's own matching scores
+    and patch masks."""
+    model, _, _, inputs = linemod_path
+    ot = model.optimal_transport
+    with torch.no_grad():
+        padded, log_mu, log_nu, _ = ot.prepare(*inputs)
+        assert tuple(padded.shape) == (64, 129, 129)
+        launches = cuda_kernels.sinkhorn_log_norm.launches
+        got = cuda_kernels.sinkhorn_log_norm(padded, log_mu, log_nu, ot.num_iterations)
+        torch.cuda.synchronize()
+        assert cuda_kernels.sinkhorn_log_norm.launches == launches + 1
+        want = cuda_kernels.sinkhorn_log_norm_plain(padded, log_mu, log_nu, ot.num_iterations)
+    valid = padded > -1e11
+    assert float((got - want)[valid].abs().max()) <= 1e-3
+    assert bool((got[~valid] < -1e11).all())

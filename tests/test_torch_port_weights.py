@@ -88,24 +88,31 @@ def test_init_parameters_is_seeded(jax_variables):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves JAX unimported. The walk
-    reaches only packages with an __init__.py: it must reach the trainer,
-    the tester and the 3DMatch experiment's modules."""
+    """Importing every module of the port leaves JAX, the JAX package and
+    PIL unimported (the card machine has no PIL; the port reads PNGs
+    itself). The walk reaches only packages with an __init__.py: it must
+    reach the trainers, the tester and both experiments' modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ref_geotransformer_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
         "exp = 'experiments.geotransformer_3dmatch_stage4.'\n"
+        "lm = 'experiments.geotransformer_modelnet_rpmnet_stage4.'\n"
         "want = {pkg.__name__ + '.' + n for n in ('engine.trainer', 'engine.tester', 'engine.checkpoint',\n"
         "        'engine.cli', 'data.loader', 'data.datasets.threedmatch', 'utils.feature_dump', exp + 'config',\n"
-        "        exp + 'dataset', exp + 'trainval', exp + 'test', exp + 'eval', exp + 'fixture')}\n"
+        "        exp + 'dataset', exp + 'trainval', exp + 'test', exp + 'eval', exp + 'fixture',\n"
+        "        'engine.iter_trainer', 'data.datasets.linemod', 'data.datasets.bop_utils',\n"
+        "        'data.datasets.modelnet', 'data.datasets.png', 'config.modelnet', lm + 'config', lm + 'dataset',\n"
+        "        lm + 'trainval_encoder', lm + 'test', lm + 'fixture')}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ref_geotransformer_tpu')\n"
         "       or m.startswith(('jax.', 'ref_geotransformer_tpu.')))\n"
         "assert not bad, bad\n"
+        "pil = sorted(m for m in sys.modules if m == 'PIL' or m.startswith('PIL.'))\n"
+        "assert not pil, pil\n"
         "print('ok', len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

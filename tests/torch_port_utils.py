@@ -5,6 +5,7 @@ are compared in float64 on the host. Importing this module imports no JAX,
 so the card-only tests can run where JAX is not installed.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -78,6 +79,54 @@ def to_torch(tree, device="cpu"):
     return torch.from_numpy(np.array(tree)).to(device)
 
 
+@contextlib.contextmanager
+def jax_target_keys(keys: np.ndarray):
+    """Within the block, the JAX package's target sampler draws its uniform
+    keys from `keys` (S, M * N): the i-th distinct PRNG key that
+    `jax.random.uniform` meets at shape keys.shape[1:] gets keys[i] (a host
+    callback hands them out in order; other shapes draw as usual). Yields
+    the dict of keys met, whose length counts the draws."""
+    import jax
+    import jax.numpy as jnp
+    import pytest
+
+    order = {}
+
+    def host_keys(key_data):
+        index = order.setdefault(tuple(np.asarray(key_data).ravel().tolist()), len(order))
+        return keys[index]
+
+    uniform = jax.random.uniform
+
+    def patched_uniform(key, shape=(), *args, **kwargs):
+        if tuple(shape) != keys.shape[1:]:
+            return uniform(key, shape, *args, **kwargs)
+        key_data = jax.random.key_data(key) if jax.dtypes.issubdtype(key.dtype, jax.dtypes.prng_key) else key
+        return jax.pure_callback(host_keys, jax.ShapeDtypeStruct(keys.shape[1:], jnp.float32), key_data,
+                                 vmap_method="sequential")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", patched_uniform)
+        yield order
+
+
+@contextlib.contextmanager
+def port_target_keys(keys: np.ndarray, next_index):
+    """Within the block, the port's target sampler takes keys[next_index()]
+    for each draw."""
+    import pytest
+    import ref_geotransformer_tpu_torch.models.geotransformer as port_geotransformer
+
+    sample = port_geotransformer.superpoint_target_sample
+
+    def sample_with_keys(*args, generator=None):
+        return sample(*args, keys=torch.from_numpy(keys[next_index()]))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_geotransformer, "superpoint_target_sample", sample_with_keys)
+        yield
+
+
 def tiny4_config(dtype="float32"):
     """4-stage variant of tests/utils.py::tiny_config (narrow widths, small
     caps): the shape of the 3DMatch model at a size that runs in seconds."""
@@ -98,6 +147,27 @@ def tiny4_config(dtype="float32"):
             input_dim=256, hidden_dim=48, output_dim=64, num_heads=4,
             blocks=("self", "cross", "self", "cross"), sigma_d=0.2, sigma_a=15.0, angle_k=3,
         ),
+    )
+
+
+def tiny3_config():
+    """The shape of the LineMod encoder model (3 stages, decoders down to
+    level 0, patches of level-0 points) at tests/utils.py::tiny_config's
+    narrow widths: decoder2 a UnaryBlock, decoder1 the LastUnaryBlock."""
+    from ref_geotransformer_tpu.config import CapacityConfig, ModelConfig
+    from tests.utils import tiny_config
+
+    cfg = tiny_config()
+    return cfg.replace(
+        capacities=CapacityConfig(
+            points=(512, 192, 64),
+            neighbor_limits=(40, 40, 40),  # no row fills up: no truncation ties
+            gt_candidates=256,
+            correspondence_limit=512,
+            search_chunk=128,
+        ),
+        backbone=dataclasses.replace(cfg.backbone, fine_level=0),
+        model=ModelConfig(ground_truth_matching_radius=0.05, num_points_in_patch=16, num_sinkhorn_iterations=20),
     )
 
 
