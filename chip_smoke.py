@@ -59,11 +59,26 @@ Phases; any failure raises and the script exits non-zero:
      of every log line the schedule's); test of iter-6 on 2 LineMod pairs
      and 1 ModelNet pair (finite RRE/RTE, RR in [0, 1], 1 Sinkhorn launch a
      pair); ms per training iteration and the host gap, the tester's
-     pairs/s, peak memory.
+     pairs/s, peak memory;
+ 10. the KITTI stage-5 experiment (5 stages, fine level 1, published widths
+     and capacities 30720/10240/3072/1024/384, f32) on a fixture odometry
+     tree in a temporary directory (2 + 2 train, 2 val and 2 test pairs of
+     20000-point scans over 40 m, the ground thinned with range as a
+     LiDAR's rings are): every level of every val and test scan under its
+     cap, the coarse level at least half full; each kernel against its
+     plain version on one forward's own inputs (the embedding forward and
+     backward at N = 384, C = 128, k = 3, Sinkhorn at 256 x 129 x 129),
+     with times and bounds; the f32 forward and one f32 Adam train step,
+     kernels against plain; trainval for one epoch, test of epoch-1 and
+     eval lgr / svd with phase 8's checks, every pyramid the chain built
+     (augmented train pairs too) under its caps; the calibrated capacities
+     and neighbor limits of the train pairs beside the config's; ms/step
+     over the warm steps, the host gap, the tester's pairs/s, peak memory.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -79,6 +94,9 @@ FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, FIXTURE_POINTS = 4, 2, 15000
 LINEMOD_TRAIN_FRAMES, LINEMOD_TEST_FRAMES = 4, 2
 LINEMOD_ITERATIONS, LINEMOD_SNAPSHOT_STEPS, LINEMOD_WARMUP = 6, 3, 2
 VAL_ITERS = 100  # the trainer's cap on a validation's batches: the 2 test frames all run
+# phase 10: the KITTI odometry fixture (pairs per sequence: 2 train
+# sequences, 1 val, 1 test), scans sized like 0.3 m-downsampled ones
+KITTI_PAIRS_PER_SEQUENCE, KITTI_POINTS, KITTI_RADIUS = 2, 20000, 40.0
 # the keys each test dump must hold (tests/test_fixture_cli_e2e.py)
 REQUIRED_NPZ_KEYS = {
     "ref_points", "src_points", "ref_points_c", "src_points_c", "ref_feats_c", "src_feats_c",
@@ -199,12 +217,18 @@ def read_counts(ck):
     return (ck.geometric_embedding.launches, ck.geometric_embedding_bwd.launches, ck.sinkhorn_log_norm.launches)
 
 
-def cli_chain(ck, dev, bare_ms):
-    """Phase 8 on the card; returns the kernel launches of its train,
-    validation and test passes."""
+def epoch_chain(ck, dev, tag, exp, n_train, n_val, test_argv, eval_argv, dump_dir, bare_ms=None):
+    """trainval for one epoch at the config's capacities, test of epoch-1 and
+    the offline eval with lgr and svd, through the entry points' main(argv)
+    (`exp` holds the experiment's config, trainval, test and eval modules);
+    every train step finite, applied, with 2 forward and 2 backward
+    embedding launches and no Sinkhorn launch; 2 forward embedding and 1
+    Sinkhorn launch per validation and test pair; epoch-1 and the snapshot
+    written; one .npz with the full key set per test pair under `dump_dir`;
+    finite summaries with RR in [0, 1]. Returns the kernel launches of its
+    train, validation and test passes."""
     import glob
     import math
-    import tempfile
     import time
 
     import numpy as np
@@ -212,8 +236,6 @@ def cli_chain(ck, dev, bare_ms):
 
     from ref_geotransformer_tpu_torch.engine import tester as tester_mod
     from ref_geotransformer_tpu_torch.engine import trainer as trainer_mod
-    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import config, fixture, test, trainval
-    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval as offline_eval
 
     records = {"train": [], "val": [], "test": []}
 
@@ -234,101 +256,121 @@ def cli_chain(ck, dev, bare_ms):
     originals = [getattr(module, name) for module, name in patched]
     for (module, name), kind in zip(patched, ("train", "val", "test")):
         setattr(module, name, counted(kind, getattr(module, name)))
-    env = {key: os.environ.get(key) for key in ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG",
-                                                "REF_GT_CAPS_SCALE", "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY")}
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            root = os.path.join(tmp, "3DMatch")
-            scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
-            fixture.make_fixture_tree(root, n_train=FIXTURE_TRAIN_PAIRS, n_val=FIXTURE_VAL_PAIRS,
-                                      points=FIXTURE_POINTS, real_base=scans)
-            for key in env:
-                os.environ.pop(key, None)
-            os.environ.update(REF_GT_3DMATCH_ROOT=root, REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
-                              REF_GT_USE_AUG="0")
-            print(f"[cli] fixture tree: {FIXTURE_TRAIN_PAIRS} train and {FIXTURE_VAL_PAIRS} val pairs of "
-                  f"{FIXTURE_POINTS} points from the demo scans; caps {config.make_cfg().capacities.points}")
-            reset_counts(ck)
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            trainer = trainval.main(["--max_epoch", "1", "--log_steps", "1", "--device", "cuda"])
-            train_s = time.perf_counter() - t0
-            train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
-            steps, vals = records["train"], records["val"]
-            check(len(steps) == FIXTURE_TRAIN_PAIRS,
-                  f"trainval: {len(steps)} train steps, expected {FIXTURE_TRAIN_PAIRS}")
-            for i, r in enumerate(steps):
-                values = {key: float(v) for key, v in r["out"].items()}
-                print(f"[cli:train] step {i + 1}: loss {values['loss']:.6f}, c_loss {values['c_loss']:.6f}, "
-                      f"f_loss {values['f_loss']:.6f}; {r['ms']:.2f} ms to a synchronize; launches: geo_embedding "
-                      f"{r['launches'][0]}, geo_embedding_bwd {r['launches'][1]}, sinkhorn {r['launches'][2]}")
-                check(all(math.isfinite(v) for v in values.values()), f"trainval step {i + 1}: non-finite loss")
-                check(r["launches"] == (2, 2, 0), f"trainval step {i + 1}: expected 2 forward, 2 backward embedding "
-                                                  f"launches and no Sinkhorn launch, got {r['launches']}")
-            check(trainer.state.skipped == 0 and trainer.state.count == FIXTURE_TRAIN_PAIRS,
-                  f"trainval: {trainer.state.skipped} steps skipped, {trainer.state.count} applied")
-            check(len(vals) == FIXTURE_VAL_PAIRS,
-                  f"trainval: {len(vals)} validation pairs, expected {FIXTURE_VAL_PAIRS}")
-            for i, r in enumerate(vals):
-                check(r["launches"] == (2, 0, 1), f"validation pair {i + 1}: expected 2 forward embedding and 1 "
-                                                  f"Sinkhorn launch, got {r['launches']}")
-                check(all(math.isfinite(float(v)) for v in r["out"].values()), f"validation pair {i + 1}: non-finite")
-            for name in ("epoch-1.pth.tar", "snapshot.pth.tar"):
-                check(os.path.isfile(os.path.join(config.SNAPSHOT_DIR, name)), f"trainval wrote no {name}")
-            # the trainer's warm cycles, steps 2 on: from the previous step's
-            # end to this one's (loader, copies, log and event writes, step);
-            # the host gap is the part before the step starts. The first
-            # step, of a newly built model, is reported on its own.
-            ends = [r["start"] + r["ms"] / 1e3 for r in steps]
-            cycle = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
-            gap = [1e3 * (r["start"] - a) for a, r in zip(ends, steps[1:])]
-            trainer_ms, gap_ms = sum(cycle) / len(cycle), sum(gap) / len(gap)
-            cycles = ", ".join("%.2f" % t for t in cycle)
-            val_ms = ", ".join("%.2f" % r["ms"] for r in vals)
-            print(f"[cli:train] one epoch in {train_s:.2f} s (model init, {FIXTURE_TRAIN_PAIRS} steps, validation, "
-                  f"snapshots); trainer {trainer_ms:.2f} ms/step over the warm steps 2-{FIXTURE_TRAIN_PAIRS} "
-                  f"({cycles} ms, each from the previous step's end), against {bare_ms:.2f} ms/step for phase 7's "
-                  f"bare train_step; host gap before a step {gap_ms:.2f} ms ({', '.join('%.2f' % t for t in gap)}); "
-                  f"first step {steps[0]['ms']:.2f} ms; validation {val_ms} ms/pair; no step skipped; "
-                  f"peak memory {train_peak:.2f} GiB")
+        reset_counts(ck)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = exp.trainval.main(["--max_epoch", "1", "--log_steps", "1", "--device", "cuda"])
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        steps, vals = records["train"], records["val"]
+        check(len(steps) == n_train, f"{tag} trainval: {len(steps)} train steps, expected {n_train}")
+        for i, r in enumerate(steps):
+            values = {key: float(v) for key, v in r["out"].items()}
+            print(f"[{tag}:train] step {i + 1}: loss {values['loss']:.6f}, c_loss {values['c_loss']:.6f}, "
+                  f"f_loss {values['f_loss']:.6f}; {r['ms']:.2f} ms to a synchronize; launches: geo_embedding "
+                  f"{r['launches'][0]}, geo_embedding_bwd {r['launches'][1]}, sinkhorn {r['launches'][2]}")
+            check(all(math.isfinite(v) for v in values.values()), f"{tag} trainval step {i + 1}: non-finite loss")
+            check(r["launches"] == (2, 2, 0), f"{tag} trainval step {i + 1}: expected 2 forward, 2 backward "
+                                              f"embedding launches and no Sinkhorn launch, got {r['launches']}")
+        check(trainer.state.skipped == 0 and trainer.state.count == n_train,
+              f"{tag} trainval: {trainer.state.skipped} steps skipped, {trainer.state.count} applied")
+        check(len(vals) == n_val, f"{tag} trainval: {len(vals)} validation pairs, expected {n_val}")
+        for i, r in enumerate(vals):
+            check(r["launches"] == (2, 0, 1), f"{tag} validation pair {i + 1}: expected 2 forward embedding and 1 "
+                                              f"Sinkhorn launch, got {r['launches']}")
+            check(all(math.isfinite(float(v)) for v in r["out"].values()), f"{tag} validation pair {i + 1}: non-finite")
+        for name in ("epoch-1.pth.tar", "snapshot.pth.tar"):
+            check(os.path.isfile(os.path.join(exp.config.SNAPSHOT_DIR, name)), f"{tag} trainval wrote no {name}")
+        # the trainer's warm cycles, steps 2 on: from the previous step's
+        # end to this one's (loader, copies, log and event writes, step);
+        # the host gap is the part before the step starts. The first
+        # step, of a newly built model, is reported on its own.
+        ends = [r["start"] + r["ms"] / 1e3 for r in steps]
+        cycle = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+        gap = [1e3 * (r["start"] - a) for a, r in zip(ends, steps[1:])]
+        trainer_ms, gap_ms = sum(cycle) / len(cycle), sum(gap) / len(gap)
+        bare = "" if bare_ms is None else f", against {bare_ms:.2f} ms/step for phase 7's bare train_step"
+        print(f"[{tag}:train] one epoch in {train_s:.2f} s (model init, {n_train} steps, validation, snapshots); "
+              f"trainer {trainer_ms:.2f} ms/step over the warm steps 2-{n_train} "
+              f"({', '.join('%.2f' % t for t in cycle)} ms, each from the previous step's end){bare}; host gap "
+              f"before a step {gap_ms:.2f} ms ({', '.join('%.2f' % t for t in gap)}); first step "
+              f"{steps[0]['ms']:.2f} ms; validation {', '.join('%.2f' % r['ms'] for r in vals)} ms/pair; no step "
+              f"skipped; peak memory {train_peak:.2f} GiB")
 
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            test.main(["--benchmark", "val", "--snapshot", "epoch-1", "--device", "cuda"])
-            test_s = time.perf_counter() - t0
-            tests = records["test"]
-            check(len(tests) == FIXTURE_VAL_PAIRS, f"test: {len(tests)} pairs, expected {FIXTURE_VAL_PAIRS}")
-            for i, r in enumerate(tests):
-                check(r["launches"] == (2, 0, 1), f"test pair {i + 1}: expected 2 forward embedding and 1 Sinkhorn "
-                                                  f"launch, got {r['launches']}")
-            dumps = sorted(glob.glob(os.path.join(config.FEATURE_DIR, "val", "*.npz")))
-            check(len(dumps) == FIXTURE_VAL_PAIRS, f"test wrote {len(dumps)} .npz dumps")
-            for path in dumps:
-                with np.load(path) as data:
-                    missing = REQUIRED_NPZ_KEYS - set(data.keys())
-                    check(not missing, f"{os.path.basename(path)}: missing keys {missing}")
-                    check(np.isfinite(data["estimated_transform"]).all(), f"{path}: non-finite transform")
-            forward_s = sum(r["ms"] for r in tests) / 1e3
-            test_ms = ", ".join("%.2f" % r["ms"] for r in tests)
-            print(f"[cli:test] {len(tests)} pairs: {len(tests) / forward_s:.2f} pairs/s in the forward "
-                  f"({test_ms} ms/pair); {test_s:.2f} s in all (model, snapshot, "
-                  f"loader, dumps); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-                  f"{len(dumps)} .npz dumps with the full key set")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        exp.test.main([*test_argv, "--snapshot", "epoch-1", "--device", "cuda"])
+        test_s = time.perf_counter() - t0
+        tests = records["test"]
+        check(len(tests) == n_val, f"{tag} test: {len(tests)} pairs, expected {n_val}")
+        for i, r in enumerate(tests):
+            check(r["launches"] == (2, 0, 1), f"{tag} test pair {i + 1}: expected 2 forward embedding and 1 "
+                                              f"Sinkhorn launch, got {r['launches']}")
+        dumps = sorted(glob.glob(os.path.join(dump_dir, "*.npz")))
+        check(len(dumps) == n_val, f"{tag} test wrote {len(dumps)} .npz dumps")
+        for path in dumps:
+            with np.load(path) as data:
+                missing = REQUIRED_NPZ_KEYS - set(data.keys())
+                check(not missing, f"{os.path.basename(path)}: missing keys {missing}")
+                check(np.isfinite(data["estimated_transform"]).all(), f"{path}: non-finite transform")
+        forward_s = sum(r["ms"] for r in tests) / 1e3
+        print(f"[{tag}:test] {len(tests)} pairs: {len(tests) / forward_s:.2f} pairs/s in the forward "
+              f"({', '.join('%.2f' % r['ms'] for r in tests)} ms/pair); {test_s:.2f} s in all (model, snapshot, "
+              f"loader, dumps); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"{len(dumps)} .npz dumps with the full key set")
 
-            for method in ("lgr", "svd"):
-                summary = offline_eval.main(["--benchmark", "val", "--method", method])
-                values = {k: v for k, v in summary.items() if k != "scenes"}
-                check(all(math.isfinite(v) for v in values.values()), f"eval {method}: non-finite summary {values}")
-                check(0.0 <= values["RR"] <= 1.0, f"eval {method}: RR {values['RR']} outside [0, 1]")
-                print(f"[cli:eval] {method}: " + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+        for method in ("lgr", "svd"):
+            summary = exp.eval.main([*eval_argv, "--method", method])
+            values = {k: v for k, v in summary.items() if k != "scenes"}
+            check(all(math.isfinite(v) for v in values.values()), f"{tag} eval {method}: non-finite summary {values}")
+            check(0.0 <= values["RR"] <= 1.0, f"{tag} eval {method}: RR {values['RR']} outside [0, 1]")
+            print(f"[{tag}:eval] {method}: " + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
     finally:
         for (module, name), fn in zip(patched, originals):
             setattr(module, name, fn)
-        for key, value in env.items():
+    return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
+
+
+@contextlib.contextmanager
+def scoped_env(keys, **values):
+    """`keys` cleared from the environment and `values` set, all restored after."""
+    saved = {key: os.environ.get(key) for key in keys}
+    try:
+        for key in keys:
+            os.environ.pop(key, None)
+        os.environ.update(values)
+        yield
+    finally:
+        for key, value in saved.items():
             os.environ.pop(key, None)
             if value is not None:
                 os.environ[key] = value
-    return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
+
+
+def cli_chain(ck, dev, bare_ms):
+    """Phase 8 on the card; returns the kernel launches of its train,
+    validation and test passes."""
+    import tempfile
+
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import config, fixture, test, trainval
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval as offline_eval
+
+    exp = types.SimpleNamespace(config=config, trainval=trainval, test=test, eval=offline_eval)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "3DMatch")
+        scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
+        fixture.make_fixture_tree(root, n_train=FIXTURE_TRAIN_PAIRS, n_val=FIXTURE_VAL_PAIRS, points=FIXTURE_POINTS,
+                                  real_base=scans)
+        keys = ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG", "REF_GT_CAPS_SCALE",
+                "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY")
+        with scoped_env(keys, REF_GT_3DMATCH_ROOT=root, REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
+                        REF_GT_USE_AUG="0"):
+            print(f"[cli] fixture tree: {FIXTURE_TRAIN_PAIRS} train and {FIXTURE_VAL_PAIRS} val pairs of "
+                  f"{FIXTURE_POINTS} points from the demo scans; caps {config.make_cfg().capacities.points}")
+            return epoch_chain(ck, dev, "cli", exp, FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, ["--benchmark", "val"],
+                               ["--benchmark", "val"], os.path.join(config.FEATURE_DIR, "val"), bare_ms=bare_ms)
 
 
 def expected_lr(optim, total, step):
@@ -391,18 +433,15 @@ def linemod_chain(ck, dev, card, kc):
     originals = [getattr(module, name) for module, name in patched]
     for (module, name), kind in zip(patched, ("train", "val", "test")):
         setattr(module, name, counted(kind, getattr(module, name)))
-    env = {key: os.environ.get(key) for key in ("REF_GT_LINEMOD_ROOT", "REF_GT_MODELNET_ROOT", "REF_GT_OUTPUT_ROOT",
-                                                "REF_GT_WARMUP", "REF_GT_LR")}
+    keys = ("REF_GT_LINEMOD_ROOT", "REF_GT_MODELNET_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_WARMUP", "REF_GT_LR")
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, scoped_env(
+                keys, REF_GT_LINEMOD_ROOT=os.path.join(tmp, "bop"), REF_GT_MODELNET_ROOT=os.path.join(tmp, "modelnet"),
+                REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"), REF_GT_WARMUP=str(LINEMOD_WARMUP)):
             lm_root, mn_root = os.path.join(tmp, "bop"), os.path.join(tmp, "modelnet")
             fixture.make_linemod_tree(os.path.join(lm_root, "linemod"), n_train=LINEMOD_TRAIN_FRAMES,
                                       n_test=LINEMOD_TEST_FRAMES)
             fixture.make_modelnet_tree(mn_root)
-            for key in env:
-                os.environ.pop(key, None)
-            os.environ.update(REF_GT_LINEMOD_ROOT=lm_root, REF_GT_MODELNET_ROOT=mn_root,
-                              REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"), REF_GT_WARMUP=str(LINEMOD_WARMUP))
             cfg = config.make_cfg()
             print(f"[linemod] {card}: fixture BOP tree of {LINEMOD_TRAIN_FRAMES} train and {LINEMOD_TEST_FRAMES} "
                   f"test frames (one box object), a ModelNet fixture of 3 shapes; caps {cfg.capacities.points}, "
@@ -557,11 +596,152 @@ def linemod_chain(ck, dev, card, kc):
     finally:
         for (module, name), fn in zip(patched, originals):
             setattr(module, name, fn)
-        for key, value in env.items():
-            os.environ.pop(key, None)
-            if value is not None:
-                os.environ[key] = value
     return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
+
+
+def kitti_chain(ck, dev, card, kc):
+    """Phase 10 on the card; returns the kernel launches of its train,
+    validation and test passes. `kc` holds main's kernel checks."""
+    import math
+    import tempfile
+    import time
+
+    import torch
+
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.calibration import calibrate_capacities, calibrate_neighbor_limits
+    from ref_geotransformer_tpu_torch.data.datasets.kitti import OdometryKittiPairDataset
+    from ref_geotransformer_tpu_torch.engine import steps as steps_mod
+    from ref_geotransformer_tpu_torch.engine.state import TrainState
+    from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, to_device, train_step
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import config, fixture, test, trainval
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import eval as offline_eval
+
+    exp = types.SimpleNamespace(config=config, trainval=trainval, test=test, eval=offline_eval)
+    n_train, n_val = 2 * KITTI_PAIRS_PER_SEQUENCE, KITTI_PAIRS_PER_SEQUENCE
+    splits = ((("00", KITTI_PAIRS_PER_SEQUENCE), ("01", KITTI_PAIRS_PER_SEQUENCE)), (("06", n_val),), (("08", n_val),))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "Kitti")
+        fixture.make_fixture_tree(root, splits, points=KITTI_POINTS, radius=KITTI_RADIUS, falloff=True)
+        with scoped_env(("REF_GT_KITTI_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_CAPS_SCALE"), REF_GT_KITTI_ROOT=root,
+                        REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output")):
+            cfg = config.make_cfg()
+            caps = cfg.capacities.points
+            gt = cfg.geotransformer
+            print(f"[kitti] {card}: fixture odometry tree of {n_train} train, {n_val} val and {n_val} test pairs, "
+                  f"scans of {KITTI_POINTS} points over {KITTI_RADIUS:.0f} m (the ground thinned with range); caps "
+                  f"{caps}, neighbor limits {cfg.capacities.neighbor_limits}, K = {cfg.model.num_points_in_patch}, "
+                  f"{cfg.coarse_matching.num_correspondences} correspondences, hidden {gt.hidden_dim}")
+
+            # 10.1 every level of every unaugmented scan under its cap; the
+            # coarse level at least half full
+            for subset in ("val", "test"):
+                for pair, meta in PairLoader(OdometryKittiPairDataset(root, subset), cfg).iter_single():
+                    data = ensure_pyramids(cfg, to_device(pair, dev))
+                    for side in ("ref", "src"):
+                        counts = [int(m.sum()) for m in data[side]["masks"]]
+                        print(f"[kitti:levels] {subset} {meta['scene_name']} {meta['ref_frame']}-{meta['src_frame']} "
+                              f"{side}: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
+                        check(all(n < c for n, c in zip(counts, caps)), f"kitti {subset} {side}: a level is full "
+                                                                         f"(voxels may have been dropped): {counts}")
+                        check(counts[-1] >= caps[-1] // 2, f"kitti {subset} {side}: coarse level {counts[-1]} of "
+                                                           f"{caps[-1]}, under half")
+
+            # 10.2 the kernels on one forward's own inputs (the last test pair)
+            model = demo.build_model(cfg, dev, seed=0)
+            captured = {}
+            hook = model.optimal_transport.register_forward_pre_hook(
+                lambda module, inputs: captured.update(inputs=inputs))
+            out = model(data)
+            hook.remove()
+            nodes, node_masks = data["src"]["points"][-1], data["src"]["masks"][-1]
+            check(nodes.shape[0] == caps[-1], f"kitti: {nodes.shape[0]} src nodes, expected {caps[-1]}")
+            kc.check_embedding(model, nodes, node_masks)
+            ot = model.optimal_transport
+            with torch.no_grad():
+                padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+            k1 = cfg.model.num_points_in_patch + 1
+            check(tuple(padded.shape) == (cfg.coarse_matching.num_correspondences, k1, k1),
+                  f"kitti: Sinkhorn batch {tuple(padded.shape)}")
+            sinkhorn = kc.check_sinkhorn("KITTI path", padded, log_mu, log_nu, ot.num_iterations)
+            rows = {"geo_embedding": (kc.emb_rows[-1][2], kc.roofline(*kc.embedding_work(
+                        caps[-1], gt.angle_k, gt.hidden_dim, backward=False), kc.peak_product)[0]),
+                    "geo_embedding_bwd": (kc.bwd_rows[-1][3], kc.roofline(*kc.embedding_work(
+                        caps[-1], gt.angle_k, gt.hidden_dim, backward=True), kc.peak_product)[0]),
+                    "sinkhorn": (sinkhorn["ms"], sinkhorn["bound_ms"])}
+            for name, (ms, bound_ms) in rows.items():
+                print(f"[kitti:kernel] {card}: {name} at the KITTI shapes: {ms:.4f} ms against a bound of "
+                      f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it")
+            check(bool(torch.isfinite(out["estimated_transform"]).all()), "kitti forward: non-finite transform")
+            del model, out, captured, padded, log_mu, log_nu
+
+            # 10.3 the f32 forward and one f32 Adam train step, kernels against plain
+            with_kernels = demo.build_model(cfg, dev, seed=1)
+            plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
+            a, b = with_kernels(data), plain(data)
+            torch.cuda.synchronize()
+            feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+            print(f"[kitti:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
+                  f"(bound {PATH_FEATS_BOUND:.0e})")
+            check(feats_err <= PATH_FEATS_BOUND, f"kitti forward: ref_feats_c differs by {feats_err}")
+            del a, b
+            grads, step_losses = [], []
+            for model in (with_kernels, plain):
+                state = TrainState(model, cfg.optim, steps_per_epoch=1)
+                losses = train_step(model, state, data, torch.Generator(device=dev).manual_seed(5))
+                check(state.count == 1 and state.skipped == 0, "kitti f32 train step: the update was skipped")
+                step_losses.append({key: float(v) for key, v in losses.items()})
+                emb = model.transformer.embedding
+                grads.append({f"{proj}.{leaf}": getattr(getattr(emb, proj), leaf).grad
+                              for proj in ("proj_d", "proj_a") for leaf in ("weight", "bias")})
+            loss_err = max(abs(step_losses[0][key] - step_losses[1][key]) / abs(step_losses[1][key])
+                           for key in ("loss", "c_loss", "f_loss"))
+            grad_scale = max(float(g.abs().max()) for g in grads[1].values())
+            grad_errs = {name: float((g - grads[1][name]).abs().max()) / grad_scale for name, g in grads[0].items()}
+            print(f"[kitti:f32] {card}: Adam train step, kernels vs plain: loss {step_losses[0]['loss']:.6f} vs "
+                  f"{step_losses[1]['loss']:.6f}; losses within {loss_err:.3e} relative (bound "
+                  f"{TRAIN_LOSS_BOUND:.0e}); embedding gradients (largest magnitude {grad_scale:.3e}), error over it: "
+                  + ", ".join(f"{name} {e:.3e}" for name, e in grad_errs.items()) + f" (bound {TRAIN_GRAD_BOUND:.0e})")
+            check(all(math.isfinite(v) for s in step_losses for v in s.values()), "kitti f32 train: non-finite loss")
+            check(loss_err <= TRAIN_LOSS_BOUND, f"kitti f32 train: losses differ by {loss_err}")
+            check(all(e <= TRAIN_GRAD_BOUND for e in grad_errs.values()), f"kitti f32 train: gradients differ: {grad_errs}")
+            del with_kernels, plain, grads, data, state
+            torch.cuda.empty_cache()
+
+            # 10.4 trainval -> test -> eval; every pyramid the chain builds
+            # (augmented train pairs too) is held under its caps
+            level_counts = []
+
+            def recorded(*args, **kwargs):
+                out = build_inputs(*args, **kwargs)
+                level_counts.append(torch.stack([m.sum() for side in ("ref", "src") for m in out[side]["masks"]]))
+                return out
+
+            build_inputs = steps_mod.build_registration_inputs
+            steps_mod.build_registration_inputs = recorded
+            try:
+                launches = epoch_chain(ck, dev, "kitti", exp, n_train, n_val, [], [], config.FEATURE_DIR)
+            finally:
+                steps_mod.build_registration_inputs = build_inputs
+            counts = torch.stack(level_counts).view(len(level_counts), 2, len(caps)).amax(dim=(0, 1)).tolist()
+            print(f"[kitti:levels] {card}: largest valid count per level over the {len(level_counts)} pairs the chain "
+                  "built: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
+            check(len(level_counts) == n_train + 2 * n_val and all(n < c for n, c in zip(counts, caps)),
+                  f"kitti chain: {len(level_counts)} pyramids, largest counts {counts} against caps {caps}")
+
+            # 10.5 calibration on the tree's train pairs, beside the config
+            t0 = time.perf_counter()
+            train_set = OdometryKittiPairDataset(root, "train")
+            bb = cfg.backbone
+            cal_caps = calibrate_capacities(train_set, bb.num_stages, bb.init_voxel_size, device=dev)
+            cal_limits = calibrate_neighbor_limits(train_set, bb.num_stages, bb.init_voxel_size, bb.init_radius, caps,
+                                                   device=dev)
+            print(f"[kitti:calibration] {card}: capacities {cal_caps} (config {caps}), neighbor limits {cal_limits} "
+                  f"(config {cfg.capacities.neighbor_limits}) over the {len(train_set)} unaugmented train pairs, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            check(all(x > 0 for x in cal_caps + cal_limits), "kitti calibration: a zero capacity or limit")
+    return launches
 
 
 def main():
@@ -886,7 +1066,11 @@ def main():
                                peak_product=PEAK_F32_PRODUCT_FLOPS)
     for name, count in zip(launches, linemod_chain(ck, dev, card, kc)):
         launches[name] += count
-    # each kernel's largest error over every shape it was held at, phase 9's included
+
+    # 10. the KITTI stage-5 experiment: trainval -> test -> eval, calibration
+    for name, count in zip(launches, kitti_chain(ck, dev, card, kc)):
+        launches[name] += count
+    # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)
     results["geo_embedding_bwd"]["max_abs_err"] = max(r[1] for r in bwd_rows)
     results["geo_embedding_bwd"]["max_rel_err"] = max(r[2] for r in bwd_rows)

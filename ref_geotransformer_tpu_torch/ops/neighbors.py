@@ -5,9 +5,14 @@ Counterpart of the chunked brute method of
 method): masked squared distances for a chunk of queries, then the `limit`
 nearest supports by an exact top-k, kept if inside `radius`. Rows come out
 distance-sorted (nearest first), with sentinel index N in empty slots.
+`topk_neighbor_distances` is the counterpart of `_chunked_topk_neighbors`:
+the squared distances themselves, which neighbor-limit calibration counts
+against r^2.
 """
 
 from __future__ import annotations
+
+from typing import Iterator, Tuple
 
 import torch
 
@@ -15,6 +20,27 @@ from ref_geotransformer_tpu_torch.ops import selection
 from ref_geotransformer_tpu_torch.ops.pairwise import pairwise_distance
 
 _FILL = 1e12
+
+
+def _chunked_min_k(
+    q_points: torch.Tensor, s_points: torch.Tensor, s_masks: torch.Tensor, k: int, chunk: int
+) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
+    """(start, sq_dists, indices) per chunk of queries: the k nearest
+    supports of each, ascending, invalid supports pushed to _FILL."""
+    s_invalid = ~s_masks
+    for start in range(0, q_points.shape[0], chunk):
+        sq = pairwise_distance(q_points[start : start + chunk], s_points)
+        sq = torch.where(s_invalid[None, :], _FILL, sq)
+        d, idx = selection.min_k(sq, k)
+        yield start, d, idx
+
+
+def topk_neighbor_distances(
+    q_points: torch.Tensor, s_points: torch.Tensor, s_masks: torch.Tensor, k: int, chunk: int = 1024
+) -> torch.Tensor:
+    """(M, k) squared distances from each query to its k nearest valid
+    supports, ascending; 1e12 where fewer than k supports are valid."""
+    return torch.cat([d for _, d, _ in _chunked_min_k(q_points, s_points, s_masks, k, chunk)], dim=0)
 
 
 def radius_search(
@@ -37,13 +63,9 @@ def radius_search(
         chunk: query rows per step (bounds the (chunk, N) distance block).
     """
     n = s_points.shape[0]
-    s_invalid = ~s_masks
     r2 = radius * radius
     out = []
-    for start in range(0, q_points.shape[0], chunk):
-        sq = pairwise_distance(q_points[start : start + chunk], s_points)
-        sq = torch.where(s_invalid[None, :], _FILL, sq)
-        d, idx = selection.min_k(sq, limit)
+    for start, d, idx in _chunked_min_k(q_points, s_points, s_masks, limit, chunk):
         valid = (d < r2) & q_masks[start : start + chunk, None]
         out.append(torch.where(valid, idx.to(torch.int32), n))
     return torch.cat(out, dim=0)

@@ -70,3 +70,12 @@ def grid_subsample(
     s_masks = counts > 0
     s_points = torch.where(s_masks[:, None], sums / torch.clamp(counts, min=1.0)[:, None], 0.0)
     return s_points, s_masks
+
+
+def count_voxels(points: torch.Tensor, masks: torch.Tensor, voxel_size: float) -> int:
+    """Number of occupied voxels of one padded cloud: the size
+    `grid_subsample` needs to drop none (capacity calibration)."""
+    keys_sorted = torch.sort(_voxel_keys(points, masks, voxel_size)).values
+    is_new = torch.ones_like(masks)
+    is_new[1:] = keys_sorted[1:] != keys_sorted[:-1]
+    return int((is_new & (keys_sorted != _SENTINEL_KEY)).sum())

@@ -307,10 +307,11 @@ def _cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c,padded", [(64, 32, False), (512, 256, False), (512, 256, True), (1024, 256, False),
-                                        (80, 64, False), (307, 256, True)])
+                                        (80, 64, False), (307, 256, True), (384, 128, True)])
 def test_embedding_kernel_matches_plain_on_card(n, c, padded):
     """N = 80 and 307 (the coarse cap of REF_GT_CAPS_SCALE=0.3) end in a
-    ragged tile of the kernel's 64 pairs."""
+    ragged tile of the kernel's 64 pairs; (384, 128) is the KITTI model's
+    coarse level, which runs the kernel's generic-C instance."""
     dev = _cuda()
     rng = np.random.default_rng(n)
     points = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
@@ -403,14 +404,15 @@ def _embedding_bwd_args(dev, n, c, k, seed, ties_only=False):
 @pytest.mark.parametrize("n,c,k,cotangent", [(64, 64, 3, "random"), (128, 128, 2, "random"), (512, 256, 3, "random"),
                                              (1024, 256, 3, "random"), (512, 256, 3, "ties_only"),
                                              (512, 256, 1, "random"), (80, 64, 3, "random"),
-                                             (307, 256, 3, "random")])
+                                             (307, 256, 3, "random"), (384, 128, 3, "random")])
 def test_embedding_bwd_kernel_matches_plain_on_card(n, c, k, cotangent):
     """The kernel against the plain version, and two launches bit for bit.
     "ties_only" keeps g on the exactly tied pairs only, where all k angles
     are 0 and every branch's sinusoids are [0..., 1...]: the masks must
     split g into k equal shares that sum to 1, so the cosine rows of dWa
     equal db and its sine rows are 0. k = 1 has no routing. N = 80 and 307
-    end in a ragged tile of the kernel's 32 pairs."""
+    end in a ragged tile of the kernel's 32 pairs; (384, 128, 3) is the
+    KITTI model's coarse level."""
     dev = _cuda()
     args = _embedding_bwd_args(dev, n, c, k, seed=n + k, ties_only=cotangent == "ties_only")
     launches = cuda_kernels.geometric_embedding_bwd.launches

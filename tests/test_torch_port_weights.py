@@ -91,7 +91,7 @@ def test_port_imports_no_jax():
     """Importing every module of the port leaves JAX, the JAX package and
     PIL unimported (the card machine has no PIL; the port reads PNGs
     itself). The walk reaches only packages with an __init__.py: it must
-    reach the trainers, the tester and both experiments' modules."""
+    reach the trainers, the tester and the three experiments' modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ref_geotransformer_tpu_torch as pkg\n"
@@ -99,12 +99,15 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "exp = 'experiments.geotransformer_3dmatch_stage4.'\n"
         "lm = 'experiments.geotransformer_modelnet_rpmnet_stage4.'\n"
+        "kitti = 'experiments.geotransformer_kitti_stage5.'\n"
         "want = {pkg.__name__ + '.' + n for n in ('engine.trainer', 'engine.tester', 'engine.checkpoint',\n"
         "        'engine.cli', 'data.loader', 'data.datasets.threedmatch', 'utils.feature_dump', exp + 'config',\n"
         "        exp + 'dataset', exp + 'trainval', exp + 'test', exp + 'eval', exp + 'fixture',\n"
         "        'engine.iter_trainer', 'data.datasets.linemod', 'data.datasets.bop_utils',\n"
         "        'data.datasets.modelnet', 'data.datasets.png', 'config.modelnet', lm + 'config', lm + 'dataset',\n"
-        "        lm + 'trainval_encoder', lm + 'test', lm + 'fixture')}\n"
+        "        lm + 'trainval_encoder', lm + 'test', lm + 'fixture', 'config.kitti', 'data.calibration',\n"
+        "        'data.datasets.kitti', kitti + 'config', kitti + 'dataset', kitti + 'trainval', kitti + 'test',\n"
+        "        kitti + 'eval', kitti + 'fixture')}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

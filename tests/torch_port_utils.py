@@ -196,3 +196,29 @@ def demo_crop(n_points: int, seed: int = 0, radius: float = 0.6):
         near = cloud[np.linalg.norm(cloud - centre, axis=1) < radius]
         out.append(near[rng.permutation(len(near))[:n_points]])
     return out
+
+
+def tiny5_config():
+    """The shape of the KITTI stage-5 model (5 stages, decoders from level 4
+    up to level 1, patches of level-1 points) at tests/utils.py::tiny_config's
+    narrow widths (init_dim 16, so the transformer's input is 16 * 2^5 = 512
+    wide), on a voxel that gives tests/test_torch_port_model.py::surface_pair
+    some 10-20 level-4 nodes."""
+    from ref_geotransformer_tpu.config import CapacityConfig, GeoTransformerModuleConfig
+    from tests.utils import tiny_config
+
+    cfg = tiny_config()
+    return cfg.replace(
+        capacities=CapacityConfig(
+            points=(512, 512, 256, 128, 64),
+            neighbor_limits=(40, 40, 40, 40, 40),  # no row fills up: no truncation ties
+            gt_candidates=256,
+            correspondence_limit=512,
+            search_chunk=128,
+        ),
+        backbone=dataclasses.replace(cfg.backbone, num_stages=5, init_voxel_size=0.02),
+        geotransformer=GeoTransformerModuleConfig(
+            input_dim=512, hidden_dim=48, output_dim=64, num_heads=4,
+            blocks=("self", "cross", "self", "cross"), sigma_d=0.2, sigma_a=15.0, angle_k=3,
+        ),
+    )
