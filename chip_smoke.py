@@ -73,7 +73,22 @@ Phases; any failure raises and the script exits non-zero:
      eval lgr / svd with phase 8's checks, every pyramid the chain built
      (augmented train pairs too) under its caps; the calibrated capacities
      and neighbor limits of the train pairs beside the config's; ms/step
-     over the warm steps, the host gap, the tester's pairs/s, peak memory.
+     over the warm steps, the host gap, the tester's pairs/s, peak memory;
+ 11. Cordi's DDPM (published widths: 40 x 80 sampled nodes, 100 steps, 8
+     layers x 8 heads x 64, FFN 2048) on phase 9's fixture tree and its
+     iter-6 encoder: one denoiser application, the epsilon-loss at pinned
+     (t, e_rand) and a 3-step reverse diffusion on pinned zs, each on the
+     card and on the CPU at the same weights and inputs (bound CORDI_BOUND,
+     which TF32 products miss); the time of one application against its
+     f32 bound, and one layer's attention core as explicit matmuls beside
+     scaled_dot_product_attention; train_cordi for 4 iterations (snapshot
+     and validation on the 2 test frames every 2: every loss finite and
+     every update applied, 2 forward embedding, 0 backward and 1 Sinkhorn
+     launch per encoded pair, the encoder's weights bit-identical to its
+     file, iter-2, iter-4 and the snapshot written); test of iter-6 with
+     Cordi's iter-4 on 2 pairs (each sampled (40, 80) matrix finite, PIR
+     and IIR in [0, 1]); ms per warm DDPM iteration, the host gap, s per
+     100-step sample, peak memory.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -94,6 +109,14 @@ FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, FIXTURE_POINTS = 4, 2, 15000
 LINEMOD_TRAIN_FRAMES, LINEMOD_TEST_FRAMES = 4, 2
 LINEMOD_ITERATIONS, LINEMOD_SNAPSHOT_STEPS, LINEMOD_WARMUP = 6, 3, 2
 VAL_ITERS = 100  # the trainer's cap on a validation's batches: the 2 test frames all run
+# phase 11: Cordi's DDPM on phase 9's encoder (its validation takes at most
+# 20 pairs: the 2 test frames all run)
+CORDI_ITERATIONS, CORDI_SNAPSHOT_STEPS, CORDI_CHECK_STEPS = 4, 2, 3
+# the card against the CPU, over the CPU result's largest magnitude: f32
+# products and sums in other orders through 8 layers, each renormalized by
+# its LayerNorms (an f32 step reads ~1e-6 alone); a product in TF32 (10-bit
+# mantissa) reads ~1e-3, so the bound tells TF32 turned on apart
+CORDI_BOUND = 1e-4
 # phase 10: the KITTI odometry fixture (pairs per sequence: 2 train
 # sequences, 1 val, 1 test), scans sized like 0.3 m-downsampled ones
 KITTI_PAIRS_PER_SEQUENCE, KITTI_POINTS, KITTI_RADIUS = 2, 20000, 40.0
@@ -384,12 +407,24 @@ def expected_lr(optim, total, step):
     return optim.lr * (optim.eta_min + 0.5 * (1.0 - optim.eta_min) * (1.0 + math.cos(math.pi * t)))
 
 
-def linemod_chain(ck, dev, card, kc):
-    """Phase 9 on the card; returns the kernel launches of its train,
-    validation and test passes. `kc` holds main's kernel checks."""
+LINEMOD_ENV_KEYS = ("REF_GT_LINEMOD_ROOT", "REF_GT_MODELNET_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_WARMUP", "REF_GT_LR",
+                    "REF_GT_DDPM_STEPS")
+
+
+def linemod_env(tmp):
+    """The LineMod experiment of phases 9 and 11 pointed at the trees and
+    outputs under `tmp`, with a warmup of LINEMOD_WARMUP iterations."""
+    return scoped_env(LINEMOD_ENV_KEYS, REF_GT_LINEMOD_ROOT=os.path.join(tmp, "bop"),
+                      REF_GT_MODELNET_ROOT=os.path.join(tmp, "modelnet"), REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
+                      REF_GT_WARMUP=str(LINEMOD_WARMUP))
+
+
+def linemod_chain(ck, dev, card, kc, tmp):
+    """Phase 9 on the card, its trees and outputs under `tmp`; returns the
+    kernel launches of its train, validation and test passes. `kc` holds
+    main's kernel checks."""
     import math
     import re
-    import tempfile
     import time
 
     import torch
@@ -433,11 +468,8 @@ def linemod_chain(ck, dev, card, kc):
     originals = [getattr(module, name) for module, name in patched]
     for (module, name), kind in zip(patched, ("train", "val", "test")):
         setattr(module, name, counted(kind, getattr(module, name)))
-    keys = ("REF_GT_LINEMOD_ROOT", "REF_GT_MODELNET_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_WARMUP", "REF_GT_LR")
     try:
-        with tempfile.TemporaryDirectory() as tmp, scoped_env(
-                keys, REF_GT_LINEMOD_ROOT=os.path.join(tmp, "bop"), REF_GT_MODELNET_ROOT=os.path.join(tmp, "modelnet"),
-                REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"), REF_GT_WARMUP=str(LINEMOD_WARMUP)):
+        with linemod_env(tmp):
             lm_root, mn_root = os.path.join(tmp, "bop"), os.path.join(tmp, "modelnet")
             fixture.make_linemod_tree(os.path.join(lm_root, "linemod"), n_train=LINEMOD_TRAIN_FRAMES,
                                       n_test=LINEMOD_TEST_FRAMES)
@@ -744,6 +776,225 @@ def kitti_chain(ck, dev, card, kc):
     return launches
 
 
+def denoiser_flops(tokens, d_model, ffn, layers):
+    """Operations (2 per multiply-add) of one denoiser application over
+    `tokens` tokens: per layer the q, k, v and output projections, the FFN,
+    q k^T and the probabilities times v; the output MLP (d -> 64 -> 32 -> 1).
+    Norms, the softmax and the activations are not counted."""
+    per_layer = 4 * 2.0 * tokens * d_model ** 2 + 2 * 2.0 * tokens * d_model * ffn + 2 * 2.0 * tokens ** 2 * d_model
+    return layers * per_layer + 2.0 * tokens * (d_model * 64 + 64 * 32 + 32)
+
+
+def cordi_chain(ck, dev, card, tmp):
+    """Phase 11 on the card, on phase 9's trees and encoder snapshot under
+    `tmp`; returns the kernel launches of its encoded pairs."""
+    import copy
+    import math
+    import time
+
+    import torch
+    import torch.nn.functional as F
+
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.datasets.linemod import LMODataset
+    from ref_geotransformer_tpu_torch.engine import iter_trainer
+    from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager, load_file
+    from ref_geotransformer_tpu_torch.engine.steps import forward, to_device
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import (
+        config,
+        test,
+        train_cordi,
+    )
+    from ref_geotransformer_tpu_torch.models.cordi import VarianceSchedule, cordi_downsample, ddpm_sample
+    from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
+
+    phase_t0 = time.perf_counter()
+    records = {"encode": [], "step": [], "sample": [], "test": []}
+
+    def counted(kind, fn):
+        """fn, recording for each call its start (host clock), its time to a
+        synchronize, its kernel launches and its result."""
+        def wrapper(*args, **kwargs):
+            before = read_counts(ck)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            records[kind].append({"start": t0, "ms": 1e3 * (time.perf_counter() - t0), "out": out,
+                                  "launches": tuple(x - y for x, y in zip(read_counts(ck), before))})
+            return out
+        return wrapper
+
+    patched = [(iter_trainer, "forward", "encode"), (iter_trainer, "ddpm_train_step", "step"),
+               (iter_trainer, "sample_pair", "sample"), (test, "sample_pair", "sample"), (test, "forward", "test")]
+    originals = [getattr(module, name) for module, name, _ in patched]
+    try:
+        with linemod_env(tmp):
+            cfg, ddpm = config.make_cfg(), config.DDPM
+            d_model = ddpm.n_heads * ddpm.query_dimensions
+            tokens = ddpm.ref_sample_num * ddpm.src_sample_num + 1
+            encoder_name = f"iter-{LINEMOD_ITERATIONS}"
+            encoder_file = os.path.join(config.SNAPSHOT_ENCODER_DIR, encoder_name + ".pth.tar")
+            print(f"[cordi] {card}: Cordi at the published widths: R = {ddpm.ref_sample_num}, S = "
+                  f"{ddpm.src_sample_num} ({tokens} tokens with the time token), {ddpm.num_steps} steps, "
+                  f"{ddpm.n_layers} layers x {ddpm.n_heads} heads x {ddpm.query_dimensions}, FFN "
+                  f"{ddpm.feed_forward_dimensions}; the encoder of phase 9 ({encoder_name}), context width "
+                  f"{2 * cfg.geotransformer.output_dim}")
+
+            # 11.1 the card against the CPU: one application, the loss, a 3-step chain
+            encoder = GeoTransformer(cfg).to(dev)
+            CheckpointManager(config.SNAPSHOT_ENCODER_DIR).load_model(encoder_name, encoder)
+            dataset = LMODataset(os.path.join(tmp, "bop"), data_augmentation=False,
+                                 points_limit=config.LMO["points_limit"], mode="test", seed=cfg.seed)
+            pair, _ = next(PairLoader(dataset, cfg).iter_single())
+            output = forward(encoder, cfg, to_device(pair, dev))
+            gen = torch.Generator(device=dev).manual_seed(11)
+            d = cordi_downsample(output, ddpm.ref_sample_num, ddpm.src_sample_num,
+                                 *(torch.rand(output[f"{side}_node_masks"].shape, generator=gen, device=dev)
+                                   for side in ("ref", "src")))
+            valid = [int(output[f"{side}_node_masks"].sum()) for side in ("ref", "src")]
+            del encoder, output
+            on_card = train_cordi.build_cordi(ddpm, dev, cfg.seed + 1)
+            on_cpu = copy.deepcopy(on_card).cpu()
+            cpu_gen = torch.Generator().manual_seed(12)
+            x_0, x_T, ctx = d["gt_corr_matrix"][None], d["init_corr_matrix"][None], d["feat_matrix"][None]
+            t = torch.tensor([ddpm.num_steps * 3 // 8])
+            t_dev = t.to(dev)
+            e_rand = torch.randn(x_0.shape, generator=cpu_gen)
+            zs = torch.randn((CORDI_CHECK_STEPS,) + tuple(x_T.shape), generator=cpu_gen)
+            short = VarianceSchedule(CORDI_CHECK_STEPS, ddpm.beta_1, ddpm.beta_T)
+            x_t = (x_0 + 0.5 * e_rand.to(dev)).contiguous()
+            errors, values = {}, {}
+            with torch.no_grad():
+                for name, run in (
+                        ("denoiser", lambda m, dv: m.denoise(x_t.to(dv), t.to(dv), ctx.to(dv))),
+                        ("loss", lambda m, dv: m.loss(x_0.to(dv), ctx.to(dv), t.to(dv), e_rand.to(dv))),
+                        (f"{CORDI_CHECK_STEPS}-step sample", lambda m, dv: ddpm_sample(
+                            short.to(dv), lambda x, tt: m.denoise(x, tt, ctx.to(dv)), x_T.to(dv), zs.to(dv)))):
+                    got, want = run(on_card, dev).cpu(), run(on_cpu, torch.device("cpu"))
+                    check(bool(torch.isfinite(got).all()), f"cordi {name}: non-finite on the card")
+                    errors[name] = float((got - want).abs().max() / want.abs().max())
+                    values[name] = (float(got.flatten()[0]), float(want.flatten()[0]))
+            print(f"[cordi:check] {card}: the card against the CPU at the same weights and inputs ({valid[0]} and "
+                  f"{valid[1]} valid coarse nodes of the first test frame), error over the CPU result's largest "
+                  f"magnitude: " + ", ".join(f"{name} {e:.3e}" for name, e in errors.items())
+                  + f" (bound {CORDI_BOUND:.0e}; TF32 products would read ~1e-3); first entries, card / CPU: "
+                  + ", ".join(f"{name} {a:.8f} / {b:.8f}" for name, (a, b) in values.items()))
+            check(all(e <= CORDI_BOUND for e in errors.values()), f"cordi: the card and the CPU differ: {errors}")
+            del on_cpu
+
+            # the denoiser's time against its bound, and its attention core beside a fused call
+            with torch.no_grad():
+                apply_ms = cuda_ms(lambda: on_card.denoise(x_t, t_dev, ctx), iters=10)
+                layer = on_card.net.layers[0].self_attn
+                tok = torch.cat([(x_t[..., None] + ctx).reshape(1, tokens - 1, d_model),
+                                 torch.zeros((1, 1, d_model), device=dev)], dim=1)
+                q, k, v = (proj(tok).reshape(1, tokens, ddpm.n_heads, -1).transpose(1, 2)
+                           for proj in (layer.query, layer.key, layer.value))
+                scale = 1.0 / math.sqrt(ddpm.query_dimensions)
+                explicit_ms = cuda_ms(lambda: torch.matmul(torch.softmax(torch.matmul(q * scale, k.transpose(-1, -2)),
+                                                                         dim=-1), v))
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            flops = denoiser_flops(tokens, d_model, ddpm.feed_forward_dimensions, ddpm.n_layers)
+            bound_ms = 1e3 * flops / PEAK_F32_FLOPS
+            print(f"[cordi:denoiser] {card}: {apply_ms:.3f} ms per denoiser application (T = {tokens}, batch 1), "
+                  f"against {flops / 1e9:.1f} GFLOP / {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {bound_ms:.3f} ms: "
+                  f"{100 * bound_ms / apply_ms:.1f}% of the f32 bound; one layer's attention core (q k^T, softmax, "
+                  f"times v): {explicit_ms:.3f} ms as explicit matmuls, {sdpa_ms:.3f} ms as "
+                  f"scaled_dot_product_attention (not used by the port)")
+            del on_card, q, k, v, tok
+            torch.cuda.empty_cache()
+
+            # 11.2 train_cordi on the frozen encoder
+            for (module, name, kind) in patched:
+                setattr(module, name, counted(kind, getattr(module, name)))
+            reset_counts(ck)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            trainer = train_cordi.main(["--encoder_snapshot", encoder_name, "--max_iteration", str(CORDI_ITERATIONS),
+                                        "--snapshot_steps", str(CORDI_SNAPSHOT_STEPS), "--log_steps", "1",
+                                        "--device", "cuda"])
+            train_s = time.perf_counter() - t0
+            train_counts = read_counts(ck)
+            train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            steps, encodes, samples = records["step"], records["encode"], records["sample"]
+            n_val = CORDI_ITERATIONS // CORDI_SNAPSHOT_STEPS * min(trainer.val_iters, LINEMOD_TEST_FRAMES)
+            check(len(steps) == CORDI_ITERATIONS, f"train_cordi: {len(steps)} steps, expected {CORDI_ITERATIONS}")
+            check(len(encodes) == CORDI_ITERATIONS * ddpm.batch_size + n_val,
+                  f"train_cordi: {len(encodes)} encoded pairs, expected {CORDI_ITERATIONS} + {n_val}")
+            check(len(samples) == n_val, f"train_cordi: {len(samples)} validation samples, expected {n_val}")
+            for i, r in enumerate(encodes):
+                check(r["launches"] == (2, 0, 1), f"train_cordi encoded pair {i + 1}: expected 2 forward embedding, "
+                                                  f"0 backward and 1 Sinkhorn launch, got {r['launches']}")
+            for i, r in enumerate(steps):
+                check(r["launches"] == (0, 0, 0), f"DDPM step {i + 1}: launched {r['launches']}")
+                check(math.isfinite(float(r["out"])), f"DDPM step {i + 1}: non-finite loss")
+            check(trainer.state.count == CORDI_ITERATIONS and trainer.state.skipped == 0,
+                  f"train_cordi: {trainer.state.skipped} skipped, {trainer.state.count} applied")
+            check(train_counts == (len(encodes) * 2, 0, len(encodes)), f"train_cordi: launches {train_counts}")
+            for r in samples:
+                check(tuple(r["out"].shape) == (ddpm.ref_sample_num, ddpm.src_sample_num)
+                      and bool(torch.isfinite(r["out"]).all()), "train_cordi: a bad validation sample")
+            saved = load_file(encoder_file, dev)["model"]
+            check(all(torch.equal(v, saved[k]) for k, v in trainer.encoder.state_dict().items()),
+                  "train_cordi: the frozen encoder's weights moved")
+            for name in (f"iter-{CORDI_SNAPSHOT_STEPS}", f"iter-{CORDI_ITERATIONS}", "snapshot"):
+                check(os.path.isfile(os.path.join(config.SNAPSHOT_DDPM_DIR, name + ".pth.tar")),
+                      f"train_cordi wrote no {name}")
+            # each step's pairs: the batch_size encodes just before it
+            train_encodes = [[r for r in encodes if r["start"] < step["start"]][-ddpm.batch_size] for step in steps]
+            iteration_ms, gaps = [], []
+            for i, (step, first) in enumerate(zip(steps, train_encodes)):
+                iteration_ms.append(1e3 * (step["start"] - first["start"]) + step["ms"])
+                if i and i % CORDI_SNAPSHOT_STEPS:
+                    gaps.append(1e3 * (first["start"] - steps[i - 1]["start"]) - steps[i - 1]["ms"])
+            warm = iteration_ms[1:]
+            losses = [float(r["out"]) for r in steps]
+            print(f"[cordi:train] {card}: {CORDI_ITERATIONS} iterations in {train_s:.2f} s (models, snapshots, "
+                  f"validation); losses {', '.join('%.6f' % x for x in losses)}; {sum(warm) / len(warm):.2f} ms per "
+                  f"warm DDPM iteration ({', '.join('%.2f' % x for x in warm)}: encoder forward, downsample, "
+                  f"epsilon-loss step, each to a synchronize; the step alone "
+                  f"{', '.join('%.2f' % r['ms'] for r in steps[1:])} ms, the encoder forward "
+                  f"{', '.join('%.2f' % r['ms'] for r in train_encodes[1:])} ms); first iteration "
+                  f"{iteration_ms[0]:.2f} ms; host gap before an iteration "
+                  f"{', '.join('%.2f' % g for g in gaps)} ms; validation sample "
+                  f"{', '.join('%.3f' % (r['ms'] / 1e3) for r in samples)} s per pair ({ddpm.num_steps} steps); "
+                  f"peak memory {train_peak:.2f} GiB; launches per encoded pair (2, 0, 1), {len(encodes)} pairs")
+
+            # 11.3 test with the encoder and the Cordi snapshot
+            first_test = len(records["sample"])
+            reset_counts(ck)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            summary = test.main(["--snapshot", encoder_name, "--cordi_snapshot", f"iter-{CORDI_ITERATIONS}",
+                                 "--num_pairs", str(LINEMOD_TEST_FRAMES), "--device", "cuda"])
+            test_s = time.perf_counter() - t0
+            test_counts = read_counts(ck)
+            tests, test_samples = records["test"], records["sample"][first_test:]
+            check(len(tests) == len(test_samples) == LINEMOD_TEST_FRAMES,
+                  f"test: {len(tests)} pairs, {len(test_samples)} samples")
+            for i, r in enumerate(tests):
+                check(r["launches"] == (2, 0, 1), f"test pair {i + 1}: expected 2 forward embedding and 1 Sinkhorn "
+                                                  f"launch, got {r['launches']}")
+            check(test_counts == (2 * len(tests), 0, len(tests)), f"test: launches {test_counts}")
+            for r in test_samples:
+                check(tuple(r["out"].shape) == (ddpm.ref_sample_num, ddpm.src_sample_num)
+                      and bool(torch.isfinite(r["out"]).all()), "test: a bad sampled matrix")
+            for key in ("ddpm_PIR", "ddpm_PIR_0.5", "ddpm_PIR_0.25", "ddpm_IIR"):
+                check(0.0 <= summary[key] <= 1.0, f"test: {key} {summary.get(key)} outside [0, 1]")
+            check(math.isfinite(summary["RRE"]), f"test: RRE {summary['RRE']}")
+            print(f"[cordi:test] {card}: {len(tests)} pairs in {test_s:.2f} s (models, snapshots, dataset); "
+                  f"encoder forward {', '.join('%.2f' % r['ms'] for r in tests)} ms, {ddpm.num_steps}-step sample "
+                  f"{', '.join('%.3f' % (r['ms'] / 1e3) for r in test_samples)} s per pair; ddpm_PIR "
+                  f"{summary['ddpm_PIR']:.3f}, ddpm_IIR {summary['ddpm_IIR']:.3f} (random weights, "
+                  f"{CORDI_ITERATIONS} iterations: not a quality figure); peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            print(f"[cordi] {card}: phase 11 took {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        for (module, name, _), fn in zip(patched, originals):
+            setattr(module, name, fn)
+    return tuple(x + y for x, y in zip(train_counts, test_counts))
+
+
 def main():
     import torch
 
@@ -751,6 +1002,7 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available; nothing was run")
     sys.path.insert(0, ROOT)
     import dataclasses
+    import tempfile
     import time
 
     from ref_geotransformer_tpu_torch import demo
@@ -1060,16 +1312,22 @@ def main():
     for name, count in zip(launches, cli_chain(ck, dev, mean_ms)):
         launches[name] += count
 
-    # 9. the LineMod encoder experiment: trainval_encoder -> test
+    # 9. the LineMod encoder experiment: trainval_encoder -> test, its trees
+    # and snapshots kept for phase 11
     kc = types.SimpleNamespace(check_embedding=check_embedding, check_sinkhorn=check_sinkhorn, emb_rows=emb_rows,
                                bwd_rows=bwd_rows, roofline=roofline, embedding_work=embedding_work,
                                peak_product=PEAK_F32_PRODUCT_FLOPS)
-    for name, count in zip(launches, linemod_chain(ck, dev, card, kc)):
-        launches[name] += count
+    with tempfile.TemporaryDirectory() as linemod_tmp:
+        for name, count in zip(launches, linemod_chain(ck, dev, card, kc, linemod_tmp)):
+            launches[name] += count
 
-    # 10. the KITTI stage-5 experiment: trainval -> test -> eval, calibration
-    for name, count in zip(launches, kitti_chain(ck, dev, card, kc)):
-        launches[name] += count
+        # 10. the KITTI stage-5 experiment: trainval -> test -> eval, calibration
+        for name, count in zip(launches, kitti_chain(ck, dev, card, kc)):
+            launches[name] += count
+
+        # 11. Cordi's DDPM on phase 9's encoder: train_cordi -> test --cordi_snapshot
+        for name, count in zip(launches, cordi_chain(ck, dev, card, linemod_tmp)):
+            launches[name] += count
     # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)
     results["geo_embedding_bwd"]["max_abs_err"] = max(r[1] for r in bwd_rows)

@@ -5,10 +5,9 @@ sampling, bbox/mask helpers, GT/cam parsers. The reference uses open3d +
 cv2; here: a pure-numpy PLY reader + area-weighted triangle sampling, and
 scipy.ndimage for the largest connected component (cv2.findContours' role).
 
-A copy of `ref_geotransformer_tpu/data/datasets/bop_utils.py` up to its
-correspondence-matrix helpers (`build_corr_matrix`,
-`get_corr_from_matrix_topk_np`), which only Cordi uses and which come with
-its port.
+A copy of `ref_geotransformer_tpu/data/datasets/bop_utils.py`, its
+correspondence-matrix helpers for Cordi (`build_corr_matrix`,
+`get_corr_from_matrix_topk_np`) included.
 """
 
 from __future__ import annotations
@@ -185,3 +184,28 @@ def depth_to_pointcloud(
     ys = (rows + rmin - cam_cy) * z / cam_fy
     cloud = np.stack([xs, ys, z], axis=1)
     return cloud / 1000.0
+
+
+def build_corr_matrix(
+    ref_points: np.ndarray, src_points: np.ndarray, transform: np.ndarray, radius: float
+) -> np.ndarray:
+    """+-1 correspondence matrix from nearest-within-radius pairs
+    (bop_utils.py:199-224)."""
+    from scipy.spatial import cKDTree
+
+    src_t = src_points @ transform[:3, :3].T + transform[:3, 3]
+    tree = cKDTree(src_t)
+    pairs = tree.query_ball_point(ref_points, radius)
+    mat = -np.ones((ref_points.shape[0], src_points.shape[0]), np.float32)
+    for i, js in enumerate(pairs):
+        for j in js:
+            mat[i, j] = 1.0
+    return mat
+
+
+def get_corr_from_matrix_topk_np(corr_matrix: np.ndarray, k: int):
+    """Top-k cells of a correspondence matrix (bop_utils.py:238-249)."""
+    r, s = corr_matrix.shape
+    flat = corr_matrix.reshape(-1)
+    idx = np.argpartition(-flat, k - 1)[:k]
+    return idx // s, idx % s

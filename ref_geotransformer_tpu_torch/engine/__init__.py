@@ -10,4 +10,9 @@ from ref_geotransformer_tpu_torch.engine.steps import (
 from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
 from ref_geotransformer_tpu_torch.engine.trainer import EpochBasedTrainer
 from ref_geotransformer_tpu_torch.engine.tester import SingleTester
-from ref_geotransformer_tpu_torch.engine.iter_trainer import IterBasedEncoderTrainer, make_warmup_cosine_schedule
+from ref_geotransformer_tpu_torch.engine.iter_trainer import (
+    IterBasedDDPMTrainer,
+    IterBasedEncoderTrainer,
+    evaluate_ddpm,
+    make_warmup_cosine_schedule,
+)

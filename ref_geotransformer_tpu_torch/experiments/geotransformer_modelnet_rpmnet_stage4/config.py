@@ -13,8 +13,8 @@ gse.k3.max.oacl.stage2.sinkhorn/config.py:33-173), built on
   access, so a caller in the same process may point them elsewhere.
 - REF_GT_LR / REF_GT_WARMUP set the learning rate and the warmup (default
   1e-4 and 10000 iterations), for short runs that must leave the warmup.
-- REF_GT_DDPM_STEPS shortens Cordi's diffusion chain (default 100; `DDPM`
-  is unused until Cordi is ported).
+- REF_GT_DDPM_STEPS shortens Cordi's diffusion chain (default 100), which
+  `DDPM` configures for `train_cordi` and `test --cordi_snapshot`.
 """
 
 from __future__ import annotations

@@ -3,7 +3,10 @@
 `from_jax_variables` is the inverse of
 `ref_geotransformer_tpu/utils/convert_checkpoint.py` (upstream state dict ->
 flax tree): it turns a JAX `{"params", "buffers"}` tree into a state dict
-with the upstream key names that the port's modules carry.
+with the upstream key names that the port's modules carry. The same mapping
+takes a Cordi tree (`models/cordi.py`), whose flax attention kernels are
+(D, H, Dh) for q, k, v and (H, Dh, D) for the output: they flatten to the
+port's (D, D) Linear weights, heads major.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray):
         return modules + ["proj_p", "weight"], value.T
     if name == "proj_p_bias":
         return modules + ["proj_p", "bias"], value
+    if name == "kernel" and value.ndim == 3:  # flax attention: q/k/v (D, H, Dh), out (H, Dh, D) -> Linear
+        flat = value.reshape(-1, value.shape[-1]) if modules[-1] == "out" else value.reshape(value.shape[0], -1)
+        return modules + ["weight"], flat.T
     if name == "kernel":  # Dense (in, out) -> Linear (out, in)
         return modules + ["weight"], value.T
     is_norm = modules and modules[-1] in ("norm", "norm_conv")
@@ -70,8 +76,10 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray):
         if modules[0] == "backbone":
             modules = modules + ["norm"]  # GroupNorm wrapper nests the torch GroupNorm one level deeper
         return modules + ["weight" if name == "scale" else "bias"], value
-    if name == "bias":
-        return modules + ["bias"], value
+    if name == "scale":  # a LayerNorm outside the matching blocks (Cordi's norm1, norm2, out_norm)
+        return modules + ["weight"], value
+    if name == "bias":  # an attention q/k/v bias (H, Dh) flattens as its kernel's columns do
+        return modules + ["bias"], value.reshape(-1) if value.ndim == 2 else value
     raise KeyError("no torch counterpart for JAX variable " + "/".join(path))
 
 

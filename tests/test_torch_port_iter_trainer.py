@@ -10,7 +10,8 @@
   with coupled L2 (plain Adam) misses the same bound;
 * a resumed iteration run equals an uninterrupted one;
 * `trainval_encoder` and `test` in process on the CPU (LineMod and
-  ModelNet); `--cordi_snapshot` and data parallelism raise.
+  ModelNet); a missing `--cordi_snapshot` file and data parallelism raise
+  (the Cordi chain is tests/test_torch_port_cordi.py's).
 
 The JAX side runs jitted at `jax.default_matmul_precision("highest")`.
 """
@@ -384,7 +385,7 @@ def test_trainval_encoder_and_test_in_process(experiment_env):
     assert np.isfinite(summary["RRE"]) and np.isfinite(summary["RTE"]) and 0.0 <= summary["RR"] <= 1.0
     summary = exp_test.main(["--snapshot", "iter-4", "--use_modelnet", "--num_pairs", "1", "--device", "cpu"])
     assert np.isfinite(summary["RRE"]) and 0.0 <= summary["RR"] <= 1.0
-    with pytest.raises(NotImplementedError, match="Cordi"):
+    with pytest.raises(FileNotFoundError, match="iter-1.pth.tar"):
         exp_test.main(["--snapshot", "iter-4", "--cordi_snapshot", "iter-1", "--device", "cpu"])
 
 
