@@ -88,7 +88,25 @@ Phases; any failure raises and the script exits non-zero:
      file, iter-2, iter-4 and the snapshot written); test of iter-6 with
      Cordi's iter-4 on 2 pairs (each sampled (40, 80) matrix finite, PIR
      and IIR in [0, 1]); ms per warm DDPM iteration, the host gap, s per
-     100-step sample, peak memory.
+     100-step sample, peak memory;
+ 12. data parallelism: (a) the 3DMatch epoch trainer at full capacities
+     (run_trainval, one epoch over a fixture tree of 4 pairs) on the plain
+     path, then through the data-parallel path in a 1-rank NCCL group
+     (gradients all-reduced, losses reduced), twice, then plain again: every
+     step finite, applied, 2 + 2 embedding launches, ms/step over the warm
+     steps and peak memory of each, and the parameters after each step
+     against the first plain run's; with deterministic algorithms, 2 steps
+     of each path on a 2-pair tree, whose parameters must agree bit for
+     bit; the NCCL all-reduce's own time over the gradient buffer and its
+     bytes, and the whole reduction of a step; (c) trainval_encoder
+     --multihost for 2 iterations in that group (rank 0 writes iter-2 and
+     the snapshot; 2 + 2 launches an iteration, 2 + 1 a validation pair);
+     (b) two processes spawned on the one card, a gloo group (NCCL refuses
+     two ranks on one device), 2 steps each at demo capacities on their
+     shards of the 4-pair tree with deterministic algorithms and pinned
+     target keys: the two ranks' parameters bit-identical, and bit-identical
+     to one process's 2 steps over the same global batches of 2 pairs with
+     the learning rate times 2; a rank that fails fails the phase.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -117,6 +135,19 @@ CORDI_ITERATIONS, CORDI_SNAPSHOT_STEPS, CORDI_CHECK_STEPS = 4, 2, 3
 # its LayerNorms (an f32 step reads ~1e-6 alone); a product in TF32 (10-bit
 # mantissa) reads ~1e-3, so the bound tells TF32 turned on apart
 CORDI_BOUND = 1e-4
+# phase 12: data parallelism. (a) DP_STEPS full-caps steps per run, one epoch
+# over a fixture tree of DP_STEPS pairs; (b) DP_GLOO_RANKS processes of
+# DP_GLOO_STEPS steps each at demo caps on the same tree; (c) trainval_encoder
+# for DP_ENCODER_ITERATIONS iterations. DP_BOUND holds the parameters after
+# each step against the plain path's, bit for bit.
+DP_STEPS, DP_GLOO_RANKS, DP_GLOO_STEPS, DP_ENCODER_ITERATIONS = 4, 2, 2, 2
+# the comparisons run with deterministic algorithms (~8x slower a step), over
+# DP_DET_STEPS steps in (a): two runs of the plain path differ otherwise by
+# 2 lr after one step, Adam's first update flipping its sign on a parameter
+# whose gradient is rounding noise (PERF.md, data parallelism), so no bound short of the
+# update's own size holds; deterministic, the paths agree bit for bit
+DP_DET_STEPS = 2
+DP_TIMEOUT_S = 300
 # phase 10: the KITTI odometry fixture (pairs per sequence: 2 train
 # sequences, 1 val, 1 test), scans sized like 0.3 m-downsampled ones
 KITTI_PAIRS_PER_SEQUENCE, KITTI_POINTS, KITTI_RADIUS = 2, 20000, 40.0
@@ -995,6 +1026,314 @@ def cordi_chain(ck, dev, card, tmp):
     return tuple(x + y for x, y in zip(train_counts, test_counts))
 
 
+def target_keys_patch(keys, index):
+    """(the port's target sampler, the same sampler taking keys[index()] for
+    its uniform keys): the seam through which two runs sample the same
+    targets for the same pair."""
+    from ref_geotransformer_tpu_torch.models import geotransformer
+
+    sample = geotransformer.superpoint_target_sample
+
+    def sample_with_keys(*args, generator=None):
+        return sample(*args, keys=keys[index()])
+
+    return sample, sample_with_keys
+
+
+def params_error(got, want):
+    """max |a - b| over every parameter, over the largest |b| of the model
+    (the Cordi chain's measure, phase 11)."""
+    scale = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+
+
+def gloo_keys(cfg, dev):
+    """Uniform target keys for the DP_GLOO_RANKS * DP_GLOO_STEPS pairs of
+    phase 12 (b), the same in every process."""
+    import torch
+
+    m = cfg.capacities.points[-1]
+    return torch.rand((DP_GLOO_RANKS * DP_GLOO_STEPS, m * m), generator=torch.Generator(device=dev).manual_seed(11),
+                      device=dev)
+
+
+def gloo_rank(rank, spec):
+    """One of phase 12 (b)'s ranks, in a process of its own on the one card:
+    joins the gloo group through the file store and trains one epoch of
+    DP_GLOO_STEPS steps at demo caps on its shard through run_trainval, with
+    deterministic algorithms (pair j of the tree samples its targets with
+    gloo_keys[j]); saves its parameters, losses, launches and step times.
+    Any failure exits non-zero."""
+    sys.path.insert(0, ROOT)
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.datasets import ThreeDMatchPairDataset
+    from ref_geotransformer_tpu_torch.engine import cli
+    from ref_geotransformer_tpu_torch.engine import trainer as trainer_mod
+    from ref_geotransformer_tpu_torch.models import cuda_kernels as ck
+    from ref_geotransformer_tpu_torch.models import geotransformer
+    from ref_geotransformer_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda:0")
+    multihost.initialize_multihost(device=dev, backend="gloo", init_method=f"file://{spec['store']}",
+                                   world_size=DP_GLOO_RANKS, rank=rank)
+    cfg = make_cfg(demo=True)
+    steps = []
+    _, sample_with_keys = target_keys_patch(gloo_keys(cfg, dev), lambda: DP_GLOO_RANKS * (len(steps) - 1) + rank)
+    records = []
+    train_batch = trainer_mod.train_batch
+
+    def recorded(*args):
+        steps.append(None)
+        before = read_counts(ck)
+        t0 = time.perf_counter()
+        out = train_batch(*args)
+        torch.cuda.synchronize()
+        records.append({"ms": 1e3 * (time.perf_counter() - t0), "losses": {k: float(v) for k, v in out.items()},
+                        "launches": tuple(x - y for x, y in zip(read_counts(ck), before))})
+        return out
+
+    geotransformer.superpoint_target_sample, trainer_mod.train_batch = sample_with_keys, recorded
+    dataset = ThreeDMatchPairDataset(spec["root"], "train", point_limit=None, use_augmentation=False, seed=cfg.seed)
+    args = cli.trainval_parser().parse_args(["--max_epoch", "1", "--log_steps", "1", "--device", "cuda:0"])
+    trainer = cli.run_trainval(cfg, PairLoader(dataset, cfg, batch_size=1, shuffle=False, seed=cfg.seed), None,
+                               os.path.join(spec["out"], "snapshots"), spec["out"], args)
+    torch.save({"params": [p.detach().cpu() for p in trainer.state.params], "records": records,
+                "counts": (trainer.state.count, trainer.state.skipped), "lr_scale": trainer.state.lr_scale,
+                "world": (trainer.world.rank, trainer.world.size), "peak": torch.cuda.max_memory_allocated(dev) / 2**30},
+               os.path.join(spec["out"], f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def data_parallel_chain(ck, dev, card, tmp):
+    """Phase 12 on the card; `tmp` holds phase 9's LineMod trees. Returns the
+    kernel launches of the data-parallel runs of (a), the ranks of (b) and
+    the iterations and validation of (c)."""
+    import math
+    import multiprocessing
+    import tempfile
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
+    from ref_geotransformer_tpu_torch.data import PairLoader
+    from ref_geotransformer_tpu_torch.data.datasets import ThreeDMatchPairDataset
+    from ref_geotransformer_tpu_torch.demo import build_model
+    from ref_geotransformer_tpu_torch.engine import cli
+    from ref_geotransformer_tpu_torch.engine import trainer as trainer_mod
+    from ref_geotransformer_tpu_torch.engine.state import TrainState
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import fixture
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import config as lm_config
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import trainval_encoder
+    from ref_geotransformer_tpu_torch.models import geotransformer
+    from ref_geotransformer_tpu_torch.parallel import dp, multihost
+
+    phase_t0 = time.perf_counter()
+    launches = [0, 0, 0]
+    scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
+    root, det_root = os.path.join(tmp, "dp-3dmatch"), os.path.join(tmp, "dp-3dmatch-deterministic")
+    for tree, n_train in ((root, DP_STEPS), (det_root, DP_DET_STEPS)):
+        fixture.make_fixture_tree(tree, n_train=n_train, n_val=1, points=FIXTURE_POINTS, real_base=scans)
+    cfg = make_cfg(demo=False)
+
+    # (a) the epoch trainer at full caps: timed plain, data-parallel (1-rank NCCL),
+    # data-parallel, plain; and, with deterministic algorithms, plain against data-parallel
+    records = []
+    train_batch = trainer_mod.train_batch
+
+    def recorded(model, state, batch, generator=None, world=None):
+        before = read_counts(ck)
+        t0 = time.perf_counter()
+        out = train_batch(model, state, batch, generator, world)
+        torch.cuda.synchronize()
+        records.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": float(out["loss"]),
+                        "params": [p.detach().clone() for p in state.params],
+                        "launches": tuple(x - y for x, y in zip(read_counts(ck), before))})
+        return out
+
+    def run(label, deterministic=False):
+        records.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        n_steps = DP_DET_STEPS if deterministic else DP_STEPS
+        dataset = ThreeDMatchPairDataset(det_root if deterministic else root, "train", point_limit=None,
+                                         use_augmentation=False, seed=cfg.seed)
+        loader = PairLoader(dataset, cfg, batch_size=1, shuffle=True, seed=cfg.seed)
+        args = cli.trainval_parser().parse_args(["--max_epoch", "1", "--log_steps", str(DP_STEPS), "--device", "cuda"])
+        out_dir = os.path.join(tmp, "dp-out", label.replace(" ", "-"))
+        try:
+            trainer = cli.run_trainval(cfg, loader, None, os.path.join(out_dir, "snapshots"), out_dir, args)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(len(records) == n_steps, f"dp {label}: {len(records)} steps, expected {n_steps}")
+        for i, r in enumerate(records):
+            check(math.isfinite(r["loss"]), f"dp {label} step {i + 1}: non-finite loss")
+            check(r["launches"] == (2, 2, 0), f"dp {label} step {i + 1}: expected 2 forward, 2 backward embedding "
+                                              f"launches and no Sinkhorn launch, got {r['launches']}")
+        check((trainer.state.count, trainer.state.skipped, trainer.state.lr_scale) == (n_steps, 0, 1.0),
+              f"dp {label}: {trainer.state.count} updates applied, {trainer.state.skipped} skipped, "
+              f"lr_scale {trainer.state.lr_scale}")
+        check((trainer.world is None) == label.startswith("plain"), f"dp {label}: world {trainer.world}")
+        warm = [r["ms"] for r in records[1:]]
+        print(f"[dp:a] {card}: {label}: {sum(warm) / len(warm):.2f} ms/step over the warm steps 2-{n_steps} "
+              f"({', '.join('%.2f' % t for t in warm)} ms to a synchronize), first step {records[0]['ms']:.2f} ms; "
+              f"losses {', '.join('%.6f' % r['loss'] for r in records)}; peak memory {peak:.2f} GiB")
+        return trainer, [dict(r) for r in records]
+
+    trainer_mod.train_batch = recorded
+    try:
+        _, plain = run("plain-1")
+        _, det_plain = run("plain, deterministic", deterministic=True)
+        multihost.initialize_multihost(device="cuda", init_method=f"file://{os.path.join(tmp, 'dp-nccl-store')}",
+                                       world_size=1, rank=0)
+        check(dist.get_backend() == "nccl" and multihost.world() == (0, 1), "dp: no 1-rank NCCL group")
+        reset_counts(ck)
+        _, det_dp = run("data-parallel, deterministic", deterministic=True)
+        errors = {}
+        for label in ("data-parallel-1", "data-parallel-2"):
+            trainer, steps = run(label)
+            errors[label] = [params_error(r["params"], p["params"]) for r, p in zip(steps, plain)]
+        launches = [x + y for x, y in zip(launches, read_counts(ck))]
+        det_errors = [params_error(r["params"], p["params"]) for r, p in zip(det_dp, det_plain)]
+        identical = all(torch.equal(a, b) for r, p in zip(det_dp, det_plain) for a, b in zip(r["params"], p["params"]))
+        del det_dp, det_plain
+        # the all-reduce alone over the gradient buffer, and the whole reduction of a step
+        params = trainer.state.params
+        numel = sum(p.numel() for p in params)
+        flat = torch.zeros(numel + 1, device=dev)
+        reduce_ms = cuda_ms(lambda: dist.all_reduce(flat))
+        step_reduce_ms = cuda_ms(lambda: dp.all_reduce_gradients(params, 1.0))
+        print(f"[dp:a] {card}: gradient buffer {numel} parameters + the weight sum, {4 * (numel + 1)} bytes (f32); "
+              f"NCCL all-reduce over it at 1 rank {reduce_ms:.4f} ms; all_reduce_gradients (concatenate, "
+              f"all-reduce, divide, copy back) {step_reduce_ms:.4f} ms")
+        del trainer, flat, params
+
+        # (c) trainval_encoder --multihost in the 1-rank NCCL group
+        with scoped_env(LINEMOD_ENV_KEYS, REF_GT_LINEMOD_ROOT=os.path.join(tmp, "bop"),
+                        REF_GT_MODELNET_ROOT=os.path.join(tmp, "modelnet"),
+                        REF_GT_OUTPUT_ROOT=os.path.join(tmp, "dp-output"), REF_GT_WARMUP=str(LINEMOD_WARMUP)):
+            reset_counts(ck)
+            t0 = time.perf_counter()
+            encoder = trainval_encoder.main(["--multihost", "--max_iteration", str(DP_ENCODER_ITERATIONS),
+                                             "--snapshot_steps", str(DP_ENCODER_ITERATIONS), "--log_steps", "1",
+                                             "--device", "cuda"])
+            torch.cuda.synchronize()
+            encoder_s = time.perf_counter() - t0
+            counts = read_counts(ck)
+            written = sorted(os.listdir(lm_config.SNAPSHOT_ENCODER_DIR))
+        launches = [x + y for x, y in zip(launches, counts)]
+        n_val = min(VAL_ITERS, LINEMOD_TEST_FRAMES)
+        want = (2 * DP_ENCODER_ITERATIONS + 2 * n_val, 2 * DP_ENCODER_ITERATIONS, n_val)
+        print(f"[dp:c] {card}: trainval_encoder --multihost in the 1-rank NCCL group: {DP_ENCODER_ITERATIONS} "
+              f"iterations and a validation in {encoder_s:.2f} s; primary {encoder.primary}; rank 0 wrote "
+              f"{written}; launches {counts} (expected {want})")
+        check(encoder.primary and (encoder.iteration, encoder.state.count, encoder.state.skipped)
+              == (DP_ENCODER_ITERATIONS, DP_ENCODER_ITERATIONS, 0), "dp trainval_encoder: wrong counts")
+        check(written == [f"iter-{DP_ENCODER_ITERATIONS}.pth.tar", "snapshot.pth.tar"],
+              f"dp trainval_encoder wrote {written}")
+        check(counts == want, f"dp trainval_encoder: launches {counts}, expected {want}")
+        del encoder
+        dist.destroy_process_group()
+
+        _, plain_again = run("plain-2")
+        errors["plain-2"] = [params_error(r["params"], p["params"]) for r, p in zip(plain_again, plain)]
+    finally:
+        trainer_mod.train_batch = train_batch
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for label, errs in errors.items():
+        print(f"[dp:a] {card}: {label} against plain-1, parameters after each step: "
+              + ", ".join(f"{e:.3e}" for e in errs) + " of their largest magnitude")
+    print(f"[dp:a] {card}: with deterministic algorithms, data-parallel against plain after each step: "
+          + ", ".join(f"{e:.3e}" for e in det_errors) + f"; bit-identical: {identical}")
+    check(identical, f"dp: with deterministic algorithms the data-parallel path's parameters differ from the "
+                     f"plain path's by {max(det_errors)}")
+    del plain, plain_again
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card under gloo, against one process over the same global batches
+    out = tempfile.mkdtemp(dir=tmp)
+    demo_cfg = make_cfg(demo=True)
+    demo_cfg = demo_cfg.replace(optim=type(demo_cfg.optim)(**{**demo_cfg.optim.__dict__, "max_epoch": 1}))
+    spec = {"root": root, "out": out, "store": os.path.join(out, "gloo-store")}
+    context = multiprocessing.get_context("spawn")
+    procs = [context.Process(target=gloo_rank, args=(rank, spec)) for rank in range(DP_GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(DP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    for rank, proc in enumerate(procs):
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+        check(proc.exitcode == 0, f"dp gloo rank {rank} exited with {proc.exitcode}")
+    ranks = [torch.load(os.path.join(out, f"rank{rank}.pt"), weights_only=False) for rank in range(DP_GLOO_RANKS)]
+    for rank, r in enumerate(ranks):
+        check(r["world"] == (rank, DP_GLOO_RANKS) and r["counts"] == (DP_GLOO_STEPS, 0)
+              and r["lr_scale"] == float(DP_GLOO_RANKS),
+              f"dp gloo rank {rank}: world {r['world']}, counts {r['counts']}, lr_scale {r['lr_scale']}")
+        for i, s in enumerate(r["records"]):
+            check(s["launches"] == (2, 2, 0), f"dp gloo rank {rank} step {i + 1}: launches {s['launches']}")
+            launches = [x + y for x, y in zip(launches, s["launches"])]
+        print(f"[dp:b] {card}: gloo rank {rank} of {DP_GLOO_RANKS} on the one card, demo caps, deterministic "
+              f"algorithms: steps {', '.join('%.2f' % s['ms'] for s in r['records'])} ms to a synchronize; losses "
+              f"{', '.join('%.6f' % s['losses']['loss'] for s in r['records'])}; peak memory {r['peak']:.2f} GiB")
+    ranks_identical = all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+    check(ranks_identical, "dp gloo: the two ranks' parameters differ")
+    check([s["losses"] for s in ranks[0]["records"]] == [s["losses"] for s in ranks[1]["records"]],
+          "dp gloo: the ranks' losses differ")
+
+    calls = []
+    sample, sample_with_keys = target_keys_patch(gloo_keys(demo_cfg, dev), lambda: len(calls) - 1)
+    dataset = ThreeDMatchPairDataset(root, "train", point_limit=None, use_augmentation=False, seed=demo_cfg.seed)
+    loader = PairLoader(dataset, demo_cfg, batch_size=DP_GLOO_RANKS, shuffle=False, seed=demo_cfg.seed)
+    model = build_model(demo_cfg, dev, seed=demo_cfg.seed)
+    state = TrainState(model, demo_cfg.optim, len(loader), lr_scale=float(DP_GLOO_RANKS))
+    trainer = trainer_mod.EpochBasedTrainer(demo_cfg, model, state, loader, None,
+                                            snapshot_dir=os.path.join(out, "single"), log_steps=DP_GLOO_STEPS,
+                                            seed=demo_cfg.seed)
+    ends, losses = [], []
+    trainer.after_step_hooks.append(lambda t, step_losses: (torch.cuda.synchronize(), ends.append(time.perf_counter()),
+                                                            losses.append(step_losses)))
+    geotransformer.superpoint_target_sample = lambda *args, generator=None: calls.append(None) or sample_with_keys(*args)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        trainer.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        geotransformer.superpoint_target_sample = sample
+    check((state.count, state.skipped) == (DP_GLOO_STEPS, 0) and len(calls) == DP_GLOO_RANKS * DP_GLOO_STEPS,
+          f"dp gloo: the single process applied {state.count} updates, skipped {state.skipped}, sampled {len(calls)}")
+    single = [p.detach().cpu() for p in state.params]
+    gloo_err = params_error(ranks[0]["params"], single)
+    gloo_identical = all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], single))
+    single_ms = [1e3 * (b - a) for a, b in zip([t0] + ends, ends)]
+    print(f"[dp:b] {card}: {DP_GLOO_RANKS} ranks in {gloo_s:.1f} s (spawn, CUDA init, {DP_GLOO_STEPS} steps); the "
+          f"ranks' parameters bit-identical: {ranks_identical}; one process over the same global batches of "
+          f"{DP_GLOO_RANKS} pairs: {', '.join('%.2f' % t for t in single_ms)} ms/step, losses "
+          f"{', '.join('%.6f' % s['loss'] for s in losses)}; its parameters against the ranks': {gloo_err:.3e} of "
+          f"the largest magnitude, bit-identical: {gloo_identical}")
+    check(gloo_identical, f"dp gloo: parameters {gloo_err} from one process's")
+    del model, state, trainer
+    torch.cuda.empty_cache()
+    print(f"[dp] {card}: phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+    return tuple(launches)
+
+
 def main():
     import torch
 
@@ -1327,6 +1666,11 @@ def main():
 
         # 11. Cordi's DDPM on phase 9's encoder: train_cordi -> test --cordi_snapshot
         for name, count in zip(launches, cordi_chain(ck, dev, card, linemod_tmp)):
+            launches[name] += count
+
+        # 12. data parallelism: the 3DMatch trainer under a 1-rank NCCL group against
+        # the plain path, 2 gloo ranks on the card, trainval_encoder --multihost
+        for name, count in zip(launches, data_parallel_chain(ck, dev, card, linemod_tmp)):
             launches[name] += count
     # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)

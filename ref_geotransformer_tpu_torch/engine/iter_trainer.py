@@ -25,6 +25,12 @@ device, seeded with `seed`; its state is part of the snapshot. A
 resumed run restarts the train loader's stream, as the JAX trainer does.
 The JAX trainer's optional correspondence PLY dump (`corr_dump_dir`) is not
 ported.
+
+Under `--multihost` (several processes, each on its loader's shard) only
+rank 0 writes the log file and the snapshots. Nothing is reduced over the
+ranks and the learning rate is not scaled: no mesh reaches the JAX
+trainers' steps, so there each process updates its own replica of the
+parameters, and the port does the same.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ref_geotransformer_tpu_torch.engine.state import GuardedState
 from ref_geotransformer_tpu_torch.engine.steps import eval_batch, forward, to_device, train_batch
 from ref_geotransformer_tpu_torch.engine.trainer import to_floats
 from ref_geotransformer_tpu_torch.models.cordi import Cordi, cordi_downsample
+from ref_geotransformer_tpu_torch.parallel.multihost import is_primary
 from ref_geotransformer_tpu_torch.utils.common import get_log_string
 from ref_geotransformer_tpu_torch.utils.logger import Logger
 from ref_geotransformer_tpu_torch.utils.summary_board import SummaryBoard
@@ -104,7 +111,8 @@ class IterBasedEncoderTrainer:
         self.log_steps = log_steps
         self.iteration = 0
         self.device = next(model.parameters()).device
-        self.logger = Logger(log_file=log_file)
+        self.primary = is_primary()  # rank 0 writes the log file and the snapshots
+        self.logger = Logger(log_file=log_file if self.primary else None, local_rank=0 if self.primary else 1)
         self.summary_board = SummaryBoard(last_n=log_steps, adaptive=True)
         self.timer = Timer()
         self.ckpt = CheckpointManager(snapshot_dir)
@@ -250,7 +258,8 @@ class IterBasedDDPMTrainer:
         self.log_steps = log_steps
         self.iteration = 0
         self.device = next(cordi.parameters()).device
-        self.logger = Logger(log_file=log_file)
+        self.primary = is_primary()  # rank 0 writes the log file and the snapshots
+        self.logger = Logger(log_file=log_file if self.primary else None, local_rank=0 if self.primary else 1)
         self.summary_board = SummaryBoard(last_n=log_steps, adaptive=True)
         self.timer = Timer()
         self.ckpt = CheckpointManager(snapshot_dir)

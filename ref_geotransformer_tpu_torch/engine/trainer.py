@@ -5,12 +5,19 @@ engine/epoch_based_trainer.py:16-181 + base_trainer.py:32-276): before/after
 train, epoch and step hooks, SummaryBoard logging every `log_steps`, the
 Timer, a per-epoch `epoch-N` snapshot and the rolling `snapshot`, resume,
 the validation epoch (thinned by REF_GT_VAL_EVERY; the last epoch always
-validates) and scalar events. One process drives one device, so it is
-always the primary process. The learning rate in the log is that of the
-next applied update (`TrainState.lr()`). Targets are sampled from one
-generator on the device, seeded with `seed`; its state is part of the
-snapshot. `profile_dir` records the steps [profile_steps[0],
-profile_steps[1]) with `torch.profiler` into a Chrome trace there.
+validates) and scalar events. The learning rate in the log is that of the
+next applied update (`TrainState.lr()`). `profile_dir` records the steps
+[profile_steps[0], profile_steps[1]) with `torch.profiler` into a Chrome
+trace there.
+
+One process drives one device. With a `world` (data parallelism, one
+process per card), each rank trains on its loader's shard and the steps
+reduce gradients, losses and validation metrics over the ranks; only the
+primary process (rank 0) writes the log file, the events and the snapshots.
+Targets are sampled from one generator on the device per rank, seeded with
+`seed + rank`: rank 0 draws what a single process draws, and every rank
+draws its own stream, as the JAX package gives every pair of its global
+batch its own key. The generators' states are part of the snapshot.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
 from ref_geotransformer_tpu_torch.engine.state import TrainState
 from ref_geotransformer_tpu_torch.engine.steps import eval_batch, train_batch
+from ref_geotransformer_tpu_torch.parallel.mesh import World
+from ref_geotransformer_tpu_torch.parallel.multihost import is_primary
 from ref_geotransformer_tpu_torch.utils.common import get_log_string
 from ref_geotransformer_tpu_torch.utils.events import EventWriter
 from ref_geotransformer_tpu_torch.utils.logger import Logger
@@ -50,27 +59,32 @@ class EpochBasedTrainer:
         profile_dir: Optional[str] = None,
         profile_steps: tuple = (10, 15),
         event_dir: Optional[str] = None,
+        world: Optional[World] = None,
     ):
         self.cfg = cfg
         self.model = model
         self.state = state
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self.world = world
         self.max_epoch = cfg.optim.max_epoch
         self.log_steps = log_steps
         self.epoch = 0
         self.iteration = 0
         self.device = next(model.parameters()).device
 
-        self.logger = Logger(log_file=log_file)
+        # host-side side effects belong to rank 0 (engine/logger.py:29-33, base_trainer.py:115)
+        self.primary = is_primary()
+        self.logger = Logger(log_file=log_file if self.primary else None, local_rank=0 if self.primary else 1)
         self.summary_board = SummaryBoard(last_n=log_steps, adaptive=True)
         self.timer = Timer()
         self.ckpt = CheckpointManager(snapshot_dir)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        rank = 0 if world is None else world.rank
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + rank)
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.profiler = None
-        self.events = EventWriter(event_dir, enabled=event_dir is not None)
+        self.events = EventWriter(event_dir, enabled=event_dir is not None and self.primary)
 
         # hook surface (epoch_based_trainer.py:39-70)
         self.before_train_hooks: list = []
@@ -119,7 +133,7 @@ class EpochBasedTrainer:
             for hook in self.before_step_hooks:
                 hook(self, batch)
             self._profile()
-            losses = to_floats(train_batch(self.model, self.state, batch, self.generator))
+            losses = to_floats(train_batch(self.model, self.state, batch, self.generator, self.world))
             self.timer.add_process_time()
             self.iteration += 1
             self.summary_board.update_from_result_dict(losses)
@@ -145,7 +159,7 @@ class EpochBasedTrainer:
             return {}
         board = SummaryBoard(adaptive=True)
         for batch in self.val_loader:
-            board.update_from_result_dict(to_floats(eval_batch(self.model, batch)))
+            board.update_from_result_dict(to_floats(eval_batch(self.model, batch, self.world)))
         summary = board.summary()
         self.events.add_scalars(summary, self.iteration, prefix="val/")
         self.events.flush()

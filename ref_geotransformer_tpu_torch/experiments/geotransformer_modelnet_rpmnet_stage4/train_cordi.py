@@ -2,7 +2,7 @@
 
     python -m ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4.train_cordi \
         [--encoder_snapshot iter-N] [--max_iteration N] [--snapshot_steps S] [--use_modelnet] \
-        [--log_steps K] [--resume] [--device cuda]
+        [--log_steps K] [--resume] [--device cuda] [--multihost]
 
 Counterpart of `experiments/geotransformer_modelnet_rpmnet_stage4/
 train_cordi.py` (ref parity: experiments/geotransformer.modelnet.../
@@ -13,7 +13,9 @@ schedule; per iteration the encoder's forward on DDPM.batch_size pairs and
 one epsilon-loss step; every `snapshot_steps` the `iter-N` file, the rolling
 snapshot (SNAPSHOT_DDPM_DIR) and a validation by reverse diffusion (PIR at
 top 32/16/8, IIR); --resume. Paths and environment overrides as in
-`trainval_encoder` (config.py); REF_GT_DDPM_STEPS shortens the chain.
+`trainval_encoder` (config.py); REF_GT_DDPM_STEPS shortens the chain. Under
+--multihost (or torchrun) each process trains its own replica on its loader
+shard, and rank 0 writes the log and the snapshots, as the JAX entry point does.
 """
 
 import os.path as osp
@@ -22,7 +24,11 @@ import torch
 
 from ref_geotransformer_tpu_torch.demo import build_model
 from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
-from ref_geotransformer_tpu_torch.engine.cli import check_single_device, iter_trainval_parser
+from ref_geotransformer_tpu_torch.engine.cli import (
+    apply_loader_sharding,
+    iter_trainval_parser,
+    maybe_initialize_multihost,
+)
 from ref_geotransformer_tpu_torch.engine.iter_trainer import IterBasedDDPMTrainer, make_warmup_cosine_schedule
 from ref_geotransformer_tpu_torch.engine.state import AdamWTrainState
 from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import config
@@ -44,16 +50,16 @@ def main(argv=None):
     parser = iter_trainval_parser()
     parser.add_argument("--encoder_snapshot", default=None, help="encoder snapshot name (e.g. iter-100000)")
     args = parser.parse_args(argv)
-    check_single_device(args)
+    device = maybe_initialize_multihost(args)
     cfg = config.make_cfg()
     ddpm = config.DDPM
     snapshot_dir, log_dir = config.SNAPSHOT_DDPM_DIR, config.LOG_DIR
     ensure_dir(snapshot_dir)
     ensure_dir(log_dir)
-    device = torch.device(args.device)
 
     max_iteration = args.max_iteration or cfg.optim.max_iteration
     train_loader, valid_loader = train_valid_data_loader(cfg, batch_size=1, use_modelnet=args.use_modelnet)
+    apply_loader_sharding(train_loader, valid_loader)
     encoder = build_model(cfg, device, seed=cfg.seed)
     if args.encoder_snapshot:
         CheckpointManager(config.SNAPSHOT_ENCODER_DIR).load_model(args.encoder_snapshot, encoder)

@@ -530,7 +530,23 @@ def test_train_cordi_and_test_in_process(experiment_env, monkeypatch):
     assert np.isfinite(summary["RRE"])
 
 
-def test_train_cordi_data_parallel_options_are_not_ported(experiment_env):
-    for extra in (["--num_devices", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            train_cordi.main(["--max_iteration", "1", "--device", "cpu", *extra])
+def test_train_cordi_data_parallel_options_are_not_ported(experiment_env, monkeypatch):
+    """(The name predates the port of data parallelism.) In one process,
+    `--num_devices 1` and `--multihost` without a coordinator train Cordi
+    one iteration as a world of one (tiny widths, a 2-step chain): no
+    process group, one loader shard, the trainer primary, its snapshot
+    written. `--num_devices 2` raises."""
+    for key in ("REF_GT_COORDINATOR", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("REF_GT_DDPM_STEPS", "2")
+    monkeypatch.setattr(exp_config, "DDPM", dataclasses.replace(
+        exp_config.DDPM, **{k: v for k, v in TRAINER_DDPM.items() if k != "num_steps"}))
+    for extra in (["--num_devices", "1"], ["--multihost"]):
+        trainer = train_cordi.main(["--max_iteration", "1", "--snapshot_steps", "1", "--device", "cpu", *extra])
+        assert (trainer.iteration, trainer.state.count, trainer.state.skipped) == (1, 1, 0)
+        assert trainer.primary and not torch.distributed.is_initialized()
+        assert (trainer.train_loader.num_shards, trainer.train_loader.shard_index) == (1, 0)
+        assert "iter-1.pth.tar" in os.listdir(exp_config.SNAPSHOT_DDPM_DIR)
+        os.remove(os.path.join(exp_config.SNAPSHOT_DDPM_DIR, "iter-1.pth.tar"))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
+        train_cordi.main(["--max_iteration", "1", "--device", "cpu", "--num_devices", "2"])

@@ -241,6 +241,28 @@ def test_resumed_run_equals_uninterrupted_run(tree, tmp_path):
                                                                 "snapshot.pth.tar"]
 
 
+def test_resumed_run_with_gradient_accumulation_equals_uninterrupted_run(tree, tmp_path):
+    """grad_acc_steps = 2 over 3 pairs an epoch: the first epoch ends in the
+    middle of a window, so the snapshot must carry the running mean and the
+    mini-step; 2 epochs in one run == 1 epoch, then --resume, bit for bit."""
+    cfg = port_config(_tiny())
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, grad_acc_steps=2))
+    straight = run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / "a" / "snapshots"), str(tmp_path / "a"),
+                            _args("--max_epoch", "2"))
+    first = run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / "b" / "snapshots"), str(tmp_path / "b"),
+                         _args("--max_epoch", "1"))
+    assert (first.iteration, first.state.count, first.state.mini_step) == (3, 1, 1)
+    assert any(float(acc.abs().max()) > 0 for acc in first.state.acc)  # a window in flight
+    resumed = run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / "b" / "snapshots"), str(tmp_path / "b"),
+                           _args("--max_epoch", "2", "--resume"))
+    for trainer in (straight, resumed):
+        assert (trainer.iteration, trainer.state.count, trainer.state.skipped, trainer.state.mini_step) == (6, 3, 0, 0)
+    for (name, a), b in zip(straight.model.state_dict().items(), resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    _assert_same_optimizer_state(straight.state.optimizer, resumed.state.optimizer)
+    assert all(torch.equal(a, b) for a, b in zip(straight.state.acc, resumed.state.acc))
+
+
 def test_trainer_profile_window_writes_a_chrome_trace(tree, tmp_path):
     """profile_steps=(1, 3): steps 2 and 3 of a 3-step epoch are recorded
     with torch.profiler; the trace is written when the window closes at the
@@ -258,11 +280,83 @@ def test_trainer_profile_window_writes_a_chrome_trace(tree, tmp_path):
         assert '"traceEvents"' in f.read()
 
 
-def test_data_parallel_options_are_not_ported(tree, tmp_path):
+def test_data_parallel_options_are_not_ported(tree, tmp_path, monkeypatch):
+    """(The name predates the port of data parallelism.) In one process,
+    `--num_devices 1` and `--multihost` without a coordinator in the
+    environment train as a world of one: no process group, the learning rate
+    unscaled, the trainer primary with its log and snapshots, and the
+    parameters those of a run without the options, bit for bit.
+    `--num_devices 2` asks for a second card that no process drives."""
+    for key in ("REF_GT_COORDINATOR", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
     cfg = port_config(_tiny())
-    for extra in (["--num_devices", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / "s"), str(tmp_path), _args(*extra))
+    runs = {}
+    for name, extra in (("plain", []), ("num_devices", ["--num_devices", "1"]), ("multihost", ["--multihost"])):
+        trainer = run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / name / "snapshots"),
+                               str(tmp_path / name), _args(*extra))
+        assert not torch.distributed.is_initialized()
+        assert trainer.world is None and trainer.primary and trainer.state.lr_scale == 1.0
+        assert (trainer.epoch, trainer.state.count, trainer.state.skipped) == (1, 3, 0)
+        assert trainer.train_loader.num_shards == 1
+        assert os.path.isfile(tmp_path / name / "train.log")
+        assert sorted(os.listdir(tmp_path / name / "snapshots")) == ["epoch-1.pth.tar", "snapshot.pth.tar"]
+        runs[name] = trainer.model.state_dict()
+    for name in ("num_devices", "multihost"):
+        assert all(torch.equal(v, runs[name][k]) for k, v in runs["plain"].items()), name
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
+        run_trainval(cfg, _loader(tree, cfg), None, str(tmp_path / "s"), str(tmp_path), _args("--num_devices", "2"))
+
+
+def test_first_epochs_take_the_jax_cli_pair_order(tmp_path, monkeypatch):
+    """The JAX run_trainval draws one batch to initialize its model, which
+    spends one permutation of a shuffling loader's generator; the port's
+    run_trainval spends the same without loading pairs. With shuffle on, the
+    index order of the first two epochs equals the JAX CLI's. The JAX side
+    is its own run_trainval, loader and draw, with the model's
+    initialization and the trainer's steps stubbed out: the stub iterates
+    the train loader once an epoch, as the trainer does. Indices are
+    compared, not augmented points: the initial draw's prefetch thread goes
+    on loading and augmenting pairs while the JAX epochs run."""
+    import ref_geotransformer_tpu.engine as jax_engine
+    import ref_geotransformer_tpu.engine.steps as jax_steps
+    from ref_geotransformer_tpu.engine import cli as jax_cli
+
+    root = str(tmp_path / "tree")
+    make_fixture_tree(root, n_train=5, n_val=1, points=600)
+    cfg = _tiny(max_epoch=2)
+    orders = {"jax": [], "port": []}
+    for key, cls in (("jax", JaxPairLoader), ("port", PairLoader)):
+        def recording(self, _indices=cls._indices, _order=orders[key]):
+            _order.append(_indices(self))
+            return _order[-1]
+        monkeypatch.setattr(cls, "_indices", recording)
+
+    class EpochsOnly:
+        def __init__(self, cfg, model, state, schedule, train_loader, *args, **kwargs):
+            self.cfg, self.train_loader = cfg, train_loader
+
+        def run(self, resume=False):
+            for _ in range(self.cfg.optim.max_epoch):
+                for _ in self.train_loader:
+                    pass
+
+    monkeypatch.setattr(jax_engine, "EpochBasedTrainer", EpochsOnly)
+    monkeypatch.setattr(jax_engine, "create_train_state", lambda *args, **kwargs: (None, None))
+    monkeypatch.setattr(jax_steps, "ensure_pyramids", lambda cfg, pair: pair)
+    jax_loader = JaxPairLoader(JaxDataset(root, "train", seed=cfg.seed), cfg, batch_size=1, shuffle=True,
+                               seed=cfg.seed)
+    jax_cli.run_trainval(cfg, jax_loader, None, str(tmp_path / "jax" / "snapshots"), str(tmp_path / "jax"),
+                         jax_cli.trainval_parser().parse_args([]))
+    port_cfg = port_config(cfg)
+    port_loader = PairLoader(ThreeDMatchPairDataset(root, "train", seed=cfg.seed), port_cfg, batch_size=1,
+                             shuffle=True, seed=cfg.seed)
+    trainer = run_trainval(port_cfg, port_loader, None, str(tmp_path / "port" / "snapshots"), str(tmp_path / "port"),
+                           _args())
+    assert trainer.iteration == 10
+    assert len(orders["jax"]) == 3 and len(orders["port"]) == 2  # the JAX draw, then two epochs each
+    for epoch in range(2):
+        np.testing.assert_array_equal(orders["port"][epoch], orders["jax"][epoch + 1])
+    assert not np.array_equal(orders["jax"][0], orders["jax"][1])  # without the draw the first epoch would differ
 
 
 # ---------------------------------------------------------------------------

@@ -398,7 +398,19 @@ def test_trainval_encoder_on_modelnet(experiment_env):
     assert "iter-1.pth.tar" in os.listdir(exp_config.SNAPSHOT_ENCODER_DIR)
 
 
-def test_data_parallel_options_are_not_ported(experiment_env):
-    for extra in (["--num_devices", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            trainval_encoder.main(["--max_iteration", "1", "--device", "cpu", *extra])
+def test_data_parallel_options_are_not_ported(experiment_env, monkeypatch):
+    """(The name predates the port of data parallelism.) In one process,
+    `--num_devices 1` and `--multihost` without a coordinator train one
+    iteration as a world of one: no process group, one loader shard, the
+    trainer primary, its snapshot written. `--num_devices 2` raises."""
+    for key in ("REF_GT_COORDINATOR", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    for extra in (["--num_devices", "1"], ["--multihost"]):
+        trainer = trainval_encoder.main(["--max_iteration", "1", "--snapshot_steps", "1", "--device", "cpu", *extra])
+        assert (trainer.iteration, trainer.state.count, trainer.state.skipped) == (1, 1, 0)
+        assert trainer.primary and not torch.distributed.is_initialized()
+        assert (trainer.train_loader.num_shards, trainer.train_loader.shard_index) == (1, 0)
+        assert "iter-1.pth.tar" in os.listdir(exp_config.SNAPSHOT_ENCODER_DIR)
+        os.remove(os.path.join(exp_config.SNAPSHOT_ENCODER_DIR, "iter-1.pth.tar"))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
+        trainval_encoder.main(["--max_iteration", "1", "--device", "cpu", "--num_devices", "2"])

@@ -381,16 +381,42 @@ def test_pyramid_on_a_fixture_scan(kitti_items):
 
 def _jax_eval_module():
     """experiments/geotransformer_kitti_stage5/eval.py, which imports its
-    sibling `config` from its own directory."""
+    sibling `config` from its own directory. It inserts that directory into
+    sys.path itself, and the tests of the other experiments import their own
+    `config` and `eval` in the same worker process, so sys.path and those two
+    sys.modules entries are restored to exactly what they were."""
+    saved_path = list(sys.path)
+    saved_modules = {name: sys.modules.get(name) for name in ("config", "eval")}
     sys.path.insert(0, JAX_EXPERIMENT_DIR)
-    for name in ("config", "eval"):
+    for name in saved_modules:
         sys.modules.pop(name, None)
     try:
         return importlib.import_module("eval")
     finally:
-        sys.path.remove(JAX_EXPERIMENT_DIR)
-        for name in ("config", "eval"):
-            sys.modules.pop(name, None)
+        sys.path[:] = saved_path
+        for name, module in saved_modules.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+@pytest.mark.parametrize("present", [False, True])
+def test_jax_eval_module_leaves_sys_path_and_modules_as_found(present, monkeypatch):
+    """The helper restores sys.path and sys.modules["config"] / ["eval"]:
+    absent, or another module under each name (as when the 3DMatch eval
+    test imported its own first)."""
+    for name in ("config", "eval"):
+        if present:
+            monkeypatch.setitem(sys.modules, name, SimpleNamespace(name=name))
+        else:
+            monkeypatch.delitem(sys.modules, name, raising=False)
+    path, modules = list(sys.path), {name: sys.modules.get(name) for name in ("config", "eval")}
+    module = _jax_eval_module()
+    assert os.path.dirname(os.path.abspath(module.__file__)) == JAX_EXPERIMENT_DIR
+    assert sys.path == path
+    for name, before in modules.items():
+        assert sys.modules.get(name) is before, name
 
 
 def _write_dumps(feature_dir, noisy):

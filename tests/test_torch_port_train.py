@@ -318,10 +318,46 @@ def test_nonfinite_gradients_skip_the_step():
 
 
 def test_gradient_accumulation_is_not_ported():
-    from ref_geotransformer_tpu_torch.config import OptimConfig
+    """grad_acc_steps = 2 (the name predates the port of gradient
+    accumulation) against optax.MultiSteps around the JAX package's guarded
+    chain, over 4 windows of 2 mini-steps with a NaN in mini-step 3: after
+    every mini-step the parameters, and the counts read from optax's state:
+    the mini-step, Adam's count of applied updates, and the guard's count of
+    skipped ones. optax resets its running mean by multiplying it with 0, so
+    the NaN stays and every later window is skipped too; the port follows."""
+    from ref_geotransformer_tpu.config import OptimConfig as JaxOptimConfig
 
-    with pytest.raises(NotImplementedError, match="grad_acc_steps"):
-        TrainState(_Tiny(), OptimConfig(grad_acc_steps=2), 1)
+    rng = np.random.default_rng(10)
+    params = {"dense": {"kernel": rng.normal(size=(3, 2)).astype(np.float32),
+                        "bias": rng.normal(size=(2,)).astype(np.float32)}}
+    grads = [{"dense": {"kernel": rng.normal(size=(3, 2)).astype(np.float32),
+                        "bias": rng.normal(size=(2,)).astype(np.float32)}} for _ in range(8)]
+    grads[2]["dense"]["kernel"][1, 0] = np.nan
+    cfg = JaxOptimConfig(lr=1e-2, lr_decay=0.5, lr_decay_steps=1, weight_decay=1e-3, grad_acc_steps=2)
+    tx, schedule = make_optimizer(cfg, 1)
+    jax_state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jax.tree_util.tree_map(jnp.asarray, params),
+                              buffers={}, opt_state=tx.init(params), tx=tx)
+
+    model = _Tiny()
+    model.load_state_dict(from_jax_variables({"params": params}), strict=True)
+    state = TrainState(model, port_config(cfg), 1)
+    applied = []
+    for step, step_grads in enumerate(grads):
+        jax_state = jax_state.apply_gradients(jax.tree_util.tree_map(jnp.asarray, step_grads))
+        for name, g in jax_gradients_by_name(step_grads).items():
+            dict(model.named_parameters())[name].grad = g.clone()
+        applied.append(state.apply_gradients())
+        want = from_jax_variables({"params": jax.device_get(jax_state.params)})
+        for name, p in model.named_parameters():
+            assert_close(p.detach(), want[name], name=f"{name} after mini-step {step + 1}")
+        opt_state = jax_state.opt_state
+        guard = opt_state.inner_opt_state
+        adam_count = int(guard.inner_state[1][0].count)
+        assert (state.mini_step, state.count, state.skipped) == (
+            int(opt_state.mini_step), adam_count, int(guard.total_notfinite)), step
+    assert applied == [False, True, False, False, False, False, False, False]
+    assert (state.count, state.skipped) == (1, 3)
+    assert state.lr() == pytest.approx(float(schedule(1)))
 
 
 def test_eval_step_builds_the_pyramid_from_a_raw_pair():

@@ -107,7 +107,8 @@ def test_port_imports_no_jax():
         "        'data.datasets.modelnet', 'data.datasets.png', 'config.modelnet', lm + 'config', lm + 'dataset',\n"
         "        lm + 'trainval_encoder', lm + 'test', lm + 'fixture', 'config.kitti', 'data.calibration',\n"
         "        'data.datasets.kitti', kitti + 'config', kitti + 'dataset', kitti + 'trainval', kitti + 'test',\n"
-        "        kitti + 'eval', kitti + 'fixture', 'models.cordi', lm + 'train_cordi')}\n"
+        "        kitti + 'eval', kitti + 'fixture', 'models.cordi', lm + 'train_cordi', 'parallel.multihost',\n"
+        "        'parallel.mesh', 'parallel.dp')}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
