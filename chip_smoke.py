@@ -106,7 +106,26 @@ Phases; any failure raises and the script exits non-zero:
      shards of the 4-pair tree with deterministic algorithms and pinned
      target keys: the two ranks' parameters bit-identical, and bit-identical
      to one process's 2 steps over the same global batches of 2 pairs with
-     the learning rate times 2; a rank that fails fails the phase.
+     the learning rate times 2; a rank that fails fails the phase;
+ 13. the rest of the model surface, on the 3DMatch stage-4 model at full
+     capacities and published widths: (a) act_dtype bfloat16 (bf16
+     activations in the backbone): one forward with kernels against the
+     plain path (2 + 0 + 1 launches, bf16 inside the backbone, f32 out),
+     then the f32 and the bf16 activation paths in turns (f32, bf16, bf16,
+     f32): ms/pair and peak memory over 10 forwards, ms/step and peak memory
+     over 3 train steps (finite, unskipped, 2 + 2 + 0 launches each); (b) a
+     seeded model saved in the upstream layout (the DDP prefix, div_term),
+     converted by `python -m ref_geotransformer_tpu_torch.utils.convert_checkpoint
+     --experiment 3dmatch`, then `demo --full --snapshot --dump` with
+     deterministic algorithms: its transform bit-identical to the source
+     model's, the .npz and the three PLYs written; (c) a variant model
+     (reduction_a mean, use_dustbin, attention dropout 0.1): one train step
+     with a generator (finite, applied, no kernel launch: the mean has no
+     kernel), one forward (1 Sinkhorn launch, the dustbin's (K+1)^2 scores)
+     with the Sinkhorn kernel against plain on its inputs, the mean
+     embedding's ms at N = 1024 and the step's peak memory; (d) a LineMod
+     encoder validation with corr_dump_dir on phase 9's tree: the 6 PLYs of
+     its first pair written, 2 + 0 + 1 launches per pair and for the dump.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -148,6 +167,8 @@ DP_STEPS, DP_GLOO_RANKS, DP_GLOO_STEPS, DP_ENCODER_ITERATIONS = 4, 2, 2, 2
 # update's own size holds; deterministic, the paths agree bit for bit
 DP_DET_STEPS = 2
 DP_TIMEOUT_S = 300
+# phase 13 (c): the attention dropout of the variant model
+VARIANT_DROPOUT = 0.1
 # phase 10: the KITTI odometry fixture (pairs per sequence: 2 train
 # sequences, 1 val, 1 test), scans sized like 0.3 m-downsampled ones
 KITTI_PAIRS_PER_SEQUENCE, KITTI_POINTS, KITTI_RADIUS = 2, 20000, 40.0
@@ -1334,6 +1355,254 @@ def data_parallel_chain(ck, dev, card, tmp):
     return tuple(launches)
 
 
+def surface_chain(ck, dev, card, kc, tmp):
+    """Phase 13 on the card; `tmp` holds phase 9's LineMod trees. Returns the
+    kernel launches of its main paths: (a) the bf16-activation inference
+    forward and train steps, (b) the converted model's demo forward, (c) the
+    variant model's train step and forward, (d) the LineMod validation with
+    its correspondence dump."""
+    import dataclasses
+    import glob
+    import math
+    import time
+
+    import numpy as np
+    import torch
+
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
+    from ref_geotransformer_tpu_torch.data import build_pyramid, build_registration_inputs
+    from ref_geotransformer_tpu_torch.engine.iter_trainer import IterBasedEncoderTrainer, make_warmup_cosine_schedule
+    from ref_geotransformer_tpu_torch.engine.state import AdamWTrainState, TrainState
+    from ref_geotransformer_tpu_torch.engine.steps import train_step
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import config as lm_config
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4.dataset import (
+        train_valid_data_loader,
+    )
+    from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
+    from ref_geotransformer_tpu_torch.train import STEPS_PER_EPOCH, make_train_run
+    from ref_geotransformer_tpu_torch.utils.weights import init_parameters
+
+    phase_t0 = time.perf_counter()
+    launches = [0, 0, 0]
+
+    def add(counts):
+        for i, count in enumerate(counts):
+            launches[i] += count
+
+    cfg32 = make_cfg(demo=False)
+    cfg16 = cfg32.replace(backbone=dataclasses.replace(cfg32.backbone, act_dtype="bfloat16"))
+
+    # (a.1) the bf16-activation inference forward, kernels against plain, one pyramid
+    pair = demo.load_pair(cfg16, dev)
+    bb, caps = cfg16.backbone, cfg16.capacities
+    data = build_registration_inputs(pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
+                                     bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits,
+                                     caps.points, transform=pair["transform"], search_chunk=caps.search_chunk)
+    with_kernels = demo.build_model(cfg16, dev, seed=1)
+    plain = demo.build_model(cfg16, dev, seed=1, use_kernels=False)
+    inner = []
+    hook = with_kernels.backbone.encoder2_2.register_forward_hook(lambda m, i, o: inner.append(o.dtype))
+    reset_counts(ck)
+    a = with_kernels(data)
+    torch.cuda.synchronize()
+    counts = read_counts(ck)
+    hook.remove()
+    add(counts)
+    b = plain(data)
+    torch.cuda.synchronize()
+    feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+    feats_f_err = float((a["ref_feats_f"] - b["ref_feats_f"]).abs().max())
+    n_src = a["src_feats_c"].shape[0]
+    key_a = a["ref_node_corr_indices"].long() * n_src + a["src_node_corr_indices"].long()
+    key_b = b["ref_node_corr_indices"].long() * n_src + b["src_node_corr_indices"].long()
+    ia, ib = torch.nonzero(key_a[:, None] == key_b[None, :], as_tuple=True)
+    ms_a, ms_b = a["matching_scores"][ia], b["matching_scores"][ib]
+    ms_err = float((ms_a - ms_b)[ms_a > -1e11].abs().max()) if len(ia) else float("nan")
+    print(f"[surface:bf16] {card}: act_dtype bfloat16 at full caps, one forward: launches {counts}; the backbone's "
+          f"block outputs {inner[0]}, its features out {a['ref_feats_f'].dtype}; kernels vs plain: ref_feats_f "
+          f"{feats_f_err:.3e}, ref_feats_c {feats_err:.3e} (bound {PATH_FEATS_BOUND:.0e}); {len(ia)} of "
+          f"{len(key_a)} proposals shared, matching_scores on them {ms_err:.3e}")
+    check(counts == (2, 0, 1), f"bf16 forward: expected 2 + 0 + 1 launches, got {counts}")
+    check(inner == [torch.bfloat16] and a["ref_feats_f"].dtype == torch.float32, f"bf16 forward: dtypes {inner}")
+    check(feats_err <= PATH_FEATS_BOUND, f"bf16 forward: ref_feats_c differs by {feats_err}")
+    check(bool(torch.isfinite(a["estimated_transform"]).all() and torch.isfinite(b["estimated_transform"]).all()),
+          "bf16 forward: non-finite transform")
+    del a, b, with_kernels, plain, data
+    torch.cuda.empty_cache()
+
+    # (a.2) f32 and bf16 activations in turns: ms/pair, ms/step, peak memory
+    turns = []
+    for label, cfg in (("f32", cfg32), ("bf16", cfg16), ("bf16", cfg16), ("f32", cfg32)):
+        model = demo.build_model(cfg, dev, seed=0)
+        pair = demo.load_pair(cfg, dev)
+        demo.register(model, cfg, pair)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(TIMED_ITERS):
+            out = demo.register(model, cfg, pair)
+        torch.cuda.synchronize()
+        pair_ms = 1e3 * (time.perf_counter() - t0) / TIMED_ITERS
+        infer_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(bool(torch.isfinite(out["estimated_transform"]).all()), f"{label}: non-finite transform")
+        del model, out
+        torch.cuda.empty_cache()
+        model, pair, state, generator = make_train_run(cfg, dev)
+        train_step(model, state, pair, generator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = []
+        for step in range(TRAIN_STEPS):
+            reset_counts(ck)
+            t0 = time.perf_counter()
+            losses = train_step(model, state, pair, generator)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = read_counts(ck)
+            add(counts)
+            check(all(math.isfinite(float(v)) for v in losses.values()), f"{label} train step {step}: non-finite")
+            check(counts == (2, 2, 0), f"{label} train step {step}: expected 2 + 2 + 0 launches, got {counts}")
+        train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(state.skipped == 0 and state.count == TRAIN_STEPS + 1, f"{label} train: {state.skipped} skipped")
+        turns.append((label, pair_ms, infer_peak, sum(step_ms) / len(step_ms), step_ms, train_peak))
+        print(f"[surface:turns] {card}: act {label}: {pair_ms:.2f} ms/pair over {TIMED_ITERS} forwards, peak "
+              f"{infer_peak:.2f} GiB; train {sum(step_ms) / len(step_ms):.2f} ms/step (steps "
+              f"{', '.join('%.2f' % t for t in step_ms)}; loss {float(losses['loss']):.6f}), peak {train_peak:.2f} GiB; "
+              f"no step skipped")
+        del model, state, pair
+        torch.cuda.empty_cache()
+
+    # (b) the converter round trip: a seeded model in the upstream layout, the
+    # CLI, then `demo --full --snapshot --dump`; deterministic algorithms
+    # (the pyramid's segment sums), so the two forwards must agree bit for bit
+    source = demo.build_model(cfg32, dev, seed=5)
+    upstream = {"module." + key: value.cpu() for key, value in source.state_dict().items()}
+    c = cfg32.geotransformer.hidden_dim
+    upstream["module.transformer.embedding.embedding.div_term"] = torch.exp(
+        torch.arange(0, c, 2, dtype=torch.float32) * (-math.log(10000.0) / c))
+    conv_dir = os.path.join(tmp, "convert")
+    os.makedirs(conv_dir, exist_ok=True)
+    torch.save({"model": upstream, "epoch": 40}, os.path.join(conv_dir, "geotransformer-3dmatch.pth.tar"))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "ref_geotransformer_tpu_torch.utils.convert_checkpoint",
+                          os.path.join(conv_dir, "geotransformer-3dmatch.pth.tar"), os.path.join(conv_dir, "snapshots"),
+                          "--name", "epoch-40", "--experiment", "3dmatch"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    print(f"[surface:convert] {card}: the converter CLI in {time.perf_counter() - t0:.1f} s, exit {cli.returncode}: "
+          + " | ".join(cli.stdout.strip().splitlines()))
+    check(cli.returncode == 0, f"convert_checkpoint failed: {cli.stderr[-2000:]}")
+    snapshot = os.path.join(conv_dir, "snapshots", "epoch-40.pth.tar")
+    dump = os.path.join(conv_dir, "demo.npz")
+    pair = demo.load_pair(cfg32, dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            want = demo.register(source, cfg32, pair)["estimated_transform"].cpu().numpy()
+        reset_counts(ck)
+        demo.main(["--full", "--snapshot", snapshot, "--dump", dump, "--iters", "0", "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = read_counts(ck)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    add(counts)
+    with np.load(dump) as data:
+        got = data["estimated_transform"]
+    plys = [dump[:-4] + f"_{suffix}.ply" for suffix in ("ref", "src", "src_aligned")]
+    sizes = [os.path.getsize(path) if os.path.isfile(path) else 0 for path in plys]
+    print(f"[surface:convert] {card}: demo --full --snapshot epoch-40 --dump: launches {counts}; transform "
+          f"bit-identical to the source model's: {np.array_equal(got, want)} (max difference "
+          f"{float(np.abs(got - want).max()):.3e}); PLYs {', '.join(f'{os.path.basename(p)} {n} bytes' for p, n in zip(plys, sizes))}")
+    check(counts == (2, 0, 1), f"converted demo: expected 2 + 0 + 1 launches, got {counts}")
+    check(np.array_equal(got, want), "converted demo: the transform differs from the source model's")
+    check(all(n > 0 for n in sizes), f"converted demo: PLYs missing: {sizes}")
+    del source, upstream
+    torch.cuda.empty_cache()
+
+    # (c) the variant model: mean angle reduction, dustbin LGR, attention dropout
+    cfgv = cfg32.replace(geotransformer=dataclasses.replace(cfg32.geotransformer, reduction_a="mean"),
+                         fine_matching=dataclasses.replace(cfg32.fine_matching, use_dustbin=True))
+    model = init_parameters(GeoTransformer(cfgv, dropout=VARIANT_DROPOUT), torch.Generator().manual_seed(0)).to(dev)
+    pair = demo.load_pair(cfgv, dev)
+    state = TrainState(model, cfgv.optim, STEPS_PER_EPOCH)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    train_step(model, state, pair, generator)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(ck)
+    t0 = time.perf_counter()
+    losses = train_step(model, state, pair, generator)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts(ck)
+    add(counts)
+    variant_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    values = {key: float(v) for key, v in losses.items()}
+    print(f"[surface:variant] {card}: reduction_a mean, use_dustbin, attention dropout {VARIANT_DROPOUT}: train step "
+          f"{step_ms:.2f} ms, loss {values['loss']:.6f} (c {values['c_loss']:.6f}, f {values['f_loss']:.6f}); launches "
+          f"{counts}; peak memory {variant_peak:.2f} GiB")
+    check(all(math.isfinite(v) for v in values.values()), "variant train step: non-finite loss")
+    check(state.skipped == 0 and state.count == 2, f"variant train: {state.skipped} skipped")
+    check(counts == (0, 0, 0), f"variant train step: expected no kernel launch, got {counts}")
+    model.eval()
+    captured = {}
+    hook = model.optimal_transport.register_forward_pre_hook(lambda module, inputs: captured.update(inputs=inputs))
+    reset_counts(ck)
+    out = demo.register(model, cfgv, pair)
+    torch.cuda.synchronize()
+    counts = read_counts(ck)
+    hook.remove()
+    add(counts)
+    k1 = cfgv.model.num_points_in_patch + 1
+    check(counts == (0, 0, 1), f"variant forward: expected 0 + 0 + 1 launches, got {counts}")
+    check(tuple(out["matching_scores"].shape[1:]) == (k1, k1), "variant forward: matching_scores shape")
+    check(bool(torch.isfinite(out["estimated_transform"]).all()), "variant forward: non-finite transform")
+    ot = model.optimal_transport
+    with torch.no_grad():
+        padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+    kc.check_sinkhorn("variant model", padded, log_mu, log_nu, ot.num_iterations)
+    bb, caps = cfgv.backbone, cfgv.capacities
+    pyr = build_pyramid(pair["ref_points"], pair["ref_masks"], bb.num_stages, bb.init_voxel_size, bb.init_radius,
+                        caps.neighbor_limits, caps.points, caps.search_chunk)
+    nodes, node_masks = pyr["points"][-1][None], pyr["masks"][-1][None]
+    emb = model.transformer.embedding
+    with torch.no_grad():
+        mean_ms = cuda_ms(lambda: emb(nodes, node_masks), iters=5, warmup=1)
+    grad_ms = cuda_ms(lambda: emb(nodes, node_masks).sum().backward(), iters=3, warmup=1)
+    print(f"[surface:variant] {card}: the mean embedding at N = {nodes.shape[1]}, C = {emb.hidden_dim}, k = "
+          f"{emb.angle_k}: {mean_ms:.3f} ms forward, {grad_ms:.3f} ms forward and backward (torch ops, no kernel; "
+          f"the max kernel: {next(r[2] for r in kc.emb_rows if r[0] == nodes.shape[1]):.3f} ms); forward {counts}; "
+          f"Sinkhorn above")
+    del model, state, out, captured, padded
+    torch.cuda.empty_cache()
+
+    # (d) a LineMod encoder validation with corr_dump_dir
+    with linemod_env(tmp):
+        cfg = lm_config.make_cfg()
+        _, valid_loader = train_valid_data_loader(cfg, batch_size=1)
+        model = demo.build_model(cfg, dev, seed=cfg.seed)
+        schedule = make_warmup_cosine_schedule(cfg.optim.lr, 1, cfg.optim.warmup_steps, cfg.optim.eta_init,
+                                               cfg.optim.eta_min)
+        corr_dir = os.path.join(tmp, "corr")
+        trainer = IterBasedEncoderTrainer(cfg, model, AdamWTrainState(model, cfg.optim, schedule), [], valid_loader,
+                                          snapshot_dir=os.path.join(tmp, "corr-snapshots"), corr_dump_dir=corr_dir)
+        reset_counts(ck)
+        summary = trainer.validate()
+        torch.cuda.synchronize()
+        counts = read_counts(ck)
+        add(counts)
+    plys = sorted(glob.glob(os.path.join(corr_dir, "*.ply")))
+    want_counts = tuple(x * (LINEMOD_TEST_FRAMES + 1) for x in (2, 0, 1))
+    print(f"[surface:corr] {card}: LineMod validation over {LINEMOD_TEST_FRAMES} pairs with corr_dump_dir: launches "
+          f"{counts}; {len(plys)} PLYs ({', '.join(os.path.basename(p) for p in plys)}); PIR "
+          f"{summary.get('PIR', float('nan')):.3f}")
+    check(counts == want_counts, f"corr dump: expected {want_counts} launches, got {counts}")
+    check(len(plys) == 6 and all(os.path.getsize(p) > 0 for p in plys), f"corr dump: PLYs {plys}")
+    print(f"[surface] {card}: phase 13 took {time.perf_counter() - phase_t0:.1f} s; act f32 / bf16 in turns: "
+          + "; ".join(f"{t[0]} {t[1]:.2f} ms/pair {t[2]:.2f} GiB, {t[3]:.2f} ms/step {t[5]:.2f} GiB" for t in turns))
+    return tuple(launches)
+
+
 def main():
     import torch
 
@@ -1671,6 +1940,11 @@ def main():
         # 12. data parallelism: the 3DMatch trainer under a 1-rank NCCL group against
         # the plain path, 2 gloo ranks on the card, trainval_encoder --multihost
         for name, count in zip(launches, data_parallel_chain(ck, dev, card, linemod_tmp)):
+            launches[name] += count
+
+        # 13. the rest of the model surface: bf16 activations, the converter round
+        # trip, the mean / dustbin / dropout variant, the LineMod correspondence dump
+        for name, count in zip(launches, surface_chain(ck, dev, card, kc, linemod_tmp)):
             launches[name] += count
     # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)

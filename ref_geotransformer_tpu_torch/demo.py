@@ -10,7 +10,11 @@ counterpart of experiments/geotransformer_3dmatch_stage4/demo.py. Without
 --snapshot (an epoch snapshot the port's trainer wrote) the weights are
 random (seeded): no trained checkpoint ships with the repository, so RRE/RTE
 are then meaningless; the run shows that the pipeline works end to end.
---dump writes the estimated transform and the correspondences to a .npz.
+--dump writes the estimated transform and the correspondences to a .npz,
+and beside it the clouds before and after registration as PLY files
+(<prefix>_ref.ply, _src.ply, _src_aligned.ply), as the JAX demo does.
+--snapshot also takes a file that utils/convert_checkpoint.py converted from
+an upstream checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ref_geotransformer_tpu_torch.data import build_registration_inputs, pad_poi
 from ref_geotransformer_tpu_torch.engine.checkpoint import load_model_file
 from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
 from ref_geotransformer_tpu_torch.ops.metrics import isotropic_transform_error
+from ref_geotransformer_tpu_torch.utils.visualization import dump_registration_ply
 from ref_geotransformer_tpu_torch.utils.weights import init_parameters
 
 DEMO_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "demo")
@@ -115,7 +120,10 @@ def main(argv=None) -> None:
     if args.dump:
         np.savez_compressed(args.dump, **{key: out[key].cpu().numpy() for key in (
             "estimated_transform", "ref_corr_points", "src_corr_points", "corr_scores")})
-        print(f"dumped outputs to {args.dump}")
+        prefix = args.dump[:-4] if args.dump.endswith(".npz") else args.dump
+        raw = [pair[f"{side}_points"][pair[f"{side}_masks"]].cpu().numpy() for side in ("ref", "src")]
+        dump_registration_ply(prefix, *raw, est.cpu().numpy())
+        print(f"dumped outputs to {args.dump} (+ {prefix}_*.ply)")
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ shows the rate of the next update. Targets (the DDPM trainer's node keys, t,
 epsilon and the sampler's noise) are drawn from one generator on the
 device, seeded with `seed`; its state is part of the snapshot. A
 resumed run restarts the train loader's stream, as the JAX trainer does.
-The JAX trainer's optional correspondence PLY dump (`corr_dump_dir`) is not
-ported.
+With `corr_dump_dir`, each validation also writes the first pair's coarse
+clouds and node correspondences as PLY files there
+(`utils/visualization.py::save_corr_pcd`), as the JAX trainer does.
 
 Under `--multihost` (several processes, each on its loader's shard) only
 rank 0 writes the log file and the snapshots. Nothing is reduced over the
@@ -52,6 +53,7 @@ from ref_geotransformer_tpu_torch.utils.common import get_log_string
 from ref_geotransformer_tpu_torch.utils.logger import Logger
 from ref_geotransformer_tpu_torch.utils.summary_board import SummaryBoard
 from ref_geotransformer_tpu_torch.utils.timer import Timer
+from ref_geotransformer_tpu_torch.utils.visualization import save_corr_pcd
 
 
 def make_warmup_cosine_schedule(lr: float, total_steps: int, warmup_steps: int, eta_init: float = 0.1,
@@ -99,6 +101,7 @@ class IterBasedEncoderTrainer:
         log_file: Optional[str] = None,
         log_steps: int = 10,
         seed: int = 7351,
+        corr_dump_dir: Optional[str] = None,
     ):
         self.cfg = cfg
         self.model = model
@@ -117,13 +120,23 @@ class IterBasedEncoderTrainer:
         self.timer = Timer()
         self.ckpt = CheckpointManager(snapshot_dir)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.corr_dump_dir = corr_dump_dir  # validation-time correspondence PLYs (iter_based_trainer.py:137-140)
+
+    def _dump_corr_pcd(self, batch: Dict[str, np.ndarray]) -> None:
+        """The inference forward of the batch's first pair, its correspondences written as PLYs."""
+        pair = to_device({key: value[0] for key, value in batch.items() if key != "_pair_masks"}, self.device)
+        ratio = save_corr_pcd(forward(self.model, self.cfg, pair), self.corr_dump_dir,
+                              prefix=f"iter{self.iteration}-")
+        self.logger.info(f"[Val] saved correspondence PLYs (coarse IR {ratio:.3f}) to {self.corr_dump_dir}")
 
     def validate(self) -> Dict:
         if self.val_loader is None:
             return {}
         board = SummaryBoard(adaptive=True)
-        for batch in itertools.islice(iter(self.val_loader), self.val_iters):
+        for i, batch in enumerate(itertools.islice(iter(self.val_loader), self.val_iters)):
             board.update_from_result_dict(to_floats(eval_batch(self.model, batch)))
+            if i == 0 and self.corr_dump_dir is not None:
+                self._dump_corr_pcd(batch)
         summary = board.summary()
         self.logger.info("[Val] " + get_log_string(summary, iteration=self.iteration))
         return summary

@@ -5,6 +5,12 @@ the upstream module names. Stage 1: ConvBlock(in -> d), Residual(d -> 2d);
 stage s >= 2: strided Residual, then Residual(-> 2^s d) twice. Decoders go
 top-down to `fine_level`: concat(upsampled, skip) -> UnaryBlock, the last
 one a LastUnaryBlock to `output_dim`. Returns features fine-to-coarse.
+
+`act_dtype=torch.bfloat16` (the config's `backbone.act_dtype`) keeps the
+activations bf16 from the input features to the last decoder: the blocks'
+tensors, the gather tables, the Linear layers' products and the norms'
+outputs (models/kpconv.py). The features leave the backbone as f32, so the
+transformer, matching and losses are unchanged.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from ref_geotransformer_tpu_torch.models.kpconv import (
 
 class KPConvFPN(nn.Module):
     def __init__(self, input_dim, output_dim, init_dim, kernel_size, init_radius, init_sigma, group_norm,
-                 num_stages=4, fine_level=1, compute_dtype=None):
+                 num_stages=4, fine_level=1, compute_dtype=None, act_dtype=None):
         super().__init__()
+        self.act_dtype = act_dtype
         self.num_stages = num_stages
         self.fine_level = fine_level
         d, r, sig, k, gn, cd = init_dim, init_radius, init_sigma, kernel_size, group_norm, compute_dtype
@@ -52,6 +59,8 @@ class KPConvFPN(nn.Module):
         output_dim), ..., (B, C_{S-1}, init_dim * 2^S)], fine-to-coarse."""
         points, masks = data["points"], data["masks"]
         neighbors, subsampling, upsampling = data["neighbors"], data["subsampling"], data["upsampling"]
+        if self.act_dtype is not None:
+            feats = feats.to(self.act_dtype)
 
         x = self.encoder1_1(feats, points[0], points[0], neighbors[0], masks[0])
         x = self.encoder1_2(x, points[0], points[0], neighbors[0], masks[0])
@@ -73,4 +82,4 @@ class KPConvFPN(nn.Module):
             latent = block(latent) if lvl == self.fine_level else block(latent, masks[lvl])
             feats_list.append(latent)
         feats_list.reverse()
-        return feats_list
+        return [f.float() for f in feats_list]

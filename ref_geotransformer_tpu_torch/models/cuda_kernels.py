@@ -74,7 +74,8 @@ def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sig
     nearest nodes; div_term (C/2,); wd, wa (C, C) with rows in
     [sin..., cos...] order; bd, ba (C,). Returns (N, N, C) float32.
     """
-    _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r} is not ported")
+    _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r}: the kernel takes max only "
+             "(the mean is models/embedding.py's own computation)")
     d_idx, a_idx = embedding_indices(points, points, ref_vectors, sigma_d, factor_a)
     d_emb = sinusoid(d_idx, div_term) @ wd + bd
     a_emb = sinusoid(a_idx, div_term) @ wa + ba  # (N, N, k, C)
@@ -92,7 +93,8 @@ def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, 
     n, k, c = points.shape[0], ref_vectors.shape[1], wd.shape[0]
     _check_f32_cuda("geometric_embedding", points.device, points=points, ref_vectors=ref_vectors,
                     div_term=div_term, wd=wd, bd=bd, wa=wa, ba=ba)
-    _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r} is not ported")
+    _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r}: the kernel takes max only "
+             "(the mean is models/embedding.py's own computation)")
     _require(n >= 1, "geometric_embedding: no nodes")
     _require(c % 32 == 0 and c <= 256, f"geometric_embedding: C={c} must be a multiple of 32 and <= 256")
     _require(tuple(points.shape) == (n, 3) and tuple(ref_vectors.shape) == (n, k, 3),

@@ -26,23 +26,28 @@ from ref_geotransformer_tpu_torch.ops.partition import point_to_node_partition
 
 
 class GeometricTransformer(nn.Module):
-    """Geometric embedding + in_proj + RPE conditional transformer + out_proj."""
+    """Geometric embedding + in_proj + RPE conditional transformer + out_proj.
+
+    `dropout` (None in every shipped configuration) is the attention
+    dropout of `models/attention.py`, drawn from the `generator` that
+    `forward` is given; the JAX package's `GeometricTransformer` has no such
+    argument (its attention modules do)."""
 
     def __init__(self, input_dim, output_dim, hidden_dim, num_heads, blocks, sigma_d, sigma_a, angle_k,
-                 reduction_a="max", use_kernel=True):
+                 reduction_a="max", use_kernel=True, dropout=None):
         super().__init__()
         self.embedding = GeometricStructureEmbedding(hidden_dim, sigma_d, sigma_a, angle_k, reduction_a, use_kernel)
         self.in_proj = nn.Linear(input_dim, hidden_dim)
-        self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads)
+        self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads, dropout=dropout)
         self.out_proj = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks=None, src_masks=None):
+    def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks=None, src_masks=None, generator=None):
         """All tensors batched (B, N, ...); masks (B, N) validity."""
         ref_embeddings = self.embedding(ref_points, ref_masks)
         src_embeddings = self.embedding(src_points, src_masks)
         ref_feats, src_feats = self.transformer(
             self.in_proj(ref_feats), self.in_proj(src_feats), ref_embeddings, src_embeddings,
-            masks0=ref_masks, masks1=src_masks,
+            masks0=ref_masks, masks1=src_masks, generator=generator,
         )
         return self.out_proj(ref_feats), self.out_proj(src_feats)
 
@@ -61,29 +66,35 @@ class GeoTransformer(nn.Module):
 
     `use_kernels=False` runs the plain PyTorch versions of the CUDA kernels
     on every device (the reference the kernels are held against).
+    `dropout` sets the transformer's attention dropout, drawn in training
+    from `generator` (before the targets are sampled from it).
     """
 
-    def __init__(self, cfg: GeoTransformerConfig, use_kernels: bool = True):
+    def __init__(self, cfg: GeoTransformerConfig, use_kernels: bool = True, dropout: Optional[float] = None):
         super().__init__()
         self.cfg = cfg
+        self.dropout = dropout
         bb = cfg.backbone
-        if bb.dtype not in ("float32", "bfloat16") or bb.act_dtype != "float32":
+        dtypes = {"float32": None, "bfloat16": torch.bfloat16}
+        if bb.dtype not in dtypes or bb.act_dtype not in dtypes:
             raise ValueError(f"unsupported backbone dtypes: dtype={bb.dtype}, act_dtype={bb.act_dtype}")
         self.backbone = KPConvFPN(
             bb.input_dim, bb.output_dim, bb.init_dim, bb.kernel_size, bb.init_radius, bb.init_sigma,
-            bb.group_norm, bb.num_stages, bb.fine_level,
-            compute_dtype=torch.bfloat16 if bb.dtype == "bfloat16" else None,
+            bb.group_norm, bb.num_stages, bb.fine_level, compute_dtype=dtypes[bb.dtype],
+            act_dtype=dtypes[bb.act_dtype],
         )
         gt = cfg.geotransformer
         self.transformer = GeometricTransformer(
             gt.input_dim, gt.output_dim, gt.hidden_dim, gt.num_heads, tuple(gt.blocks), gt.sigma_d, gt.sigma_a,
-            gt.angle_k, gt.reduction_a, use_kernel=use_kernels,
+            gt.angle_k, gt.reduction_a, use_kernel=use_kernels, dropout=dropout,
         )
         self.optimal_transport = LearnableLogOptimalTransport(cfg.model.num_sinkhorn_iterations,
                                                               use_kernel=use_kernels)
 
     def forward(self, data: Dict, training: bool = False, generator: Optional[torch.Generator] = None) -> Dict:
         """Autograd records the forward only when `training` is set."""
+        if training and self.dropout and generator is None:
+            raise ValueError("training with attention dropout needs a generator")
         with torch.set_grad_enabled(training):
             return self._forward(data, training, generator)
 
@@ -140,7 +151,7 @@ class GeoTransformer(nn.Module):
         # 3. geometric transformer over the superpoints
         ref_h, src_h = self.transformer(
             ref_points_c[None], src_points_c[None], feats_c[0][None], feats_c[1][None],
-            ref_masks_c[None], src_masks_c[None],
+            ref_masks_c[None], src_masks_c[None], generator=generator if training else None,
         )
         ref_feats_c = ref_h[0] / torch.clamp(torch.linalg.norm(ref_h[0], dim=1, keepdim=True), min=1e-12)
         src_feats_c = src_h[0] / torch.clamp(torch.linalg.norm(src_h[0], dim=1, keepdim=True), min=1e-12)

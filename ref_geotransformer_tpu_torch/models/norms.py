@@ -1,10 +1,13 @@
-"""Mask-aware group normalization over whole clouds.
+"""Mask-aware group normalization over whole clouds, and the backbone's
+LayerNorm.
 
 Counterpart of `ref_geotransformer_tpu/models/norms.py::MaskedGroupNorm`.
 The upstream GroupNorm normalizes the stacked ref+src cloud as one tensor,
 so its moments are joint over both clouds; the JAX package gets the same by
 summing the moments across its `pair_norm` vmap axis. Here the pair is a
 leading axis of the input and the moments are summed over it directly.
+Both norms take bf16 activations and return them in bf16; their statistics
+and parameters stay wider (f64 and f32).
 """
 
 from __future__ import annotations
@@ -12,22 +15,23 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class _GroupNormFunction(torch.autograd.Function):
-    """(x - mean) * rsqrt(var + eps) * scale + bias of f32 rows x (R, G, D),
+    """(x - mean) * rsqrt(var + eps) * scale + bias of rows x (R, G, D),
     the moments per group over the rows weighted by w (R, 1, 1) (1 for a
     valid row, 0 for padding; `count` valid entries per group), two-pass.
 
-    The arithmetic runs in f64 and the result is rounded to f32 once, in
-    both directions. In f32, eager torch rounds every step apart and sums
+    The arithmetic runs in f64 and the result is rounded once to x's dtype
+    (f32 or bf16), in both directions. In f32, eager torch rounds every step apart and sums
     the rows (a strided axis) in order on the CPU: a 5-stage model's
     gradients then moved by up to 4e-3 of their magnitude from an f64
     evaluation, where the JAX package's fused f32 stays within 2e-4 and
     this function within 1.5e-4. On an H100 no end-to-end cost shows above
-    the run-to-run spread (PERF.md). Saved for the backward: x in f32 and
-    the per-group moments."""
+    the run-to-run spread (PERF.md). Saved for the backward: x and the
+    per-group moments."""
 
     @staticmethod
     def forward(ctx, x, w, count, scale, bias, eps):
@@ -36,7 +40,7 @@ class _GroupNormFunction(torch.autograd.Function):
         xc = xd - mean
         rstd = torch.rsqrt(torch.sum(wd * xc * xc, dim=(0, 2), keepdim=True) / count + eps)
         ctx.save_for_backward(x, w, count, mean, rstd, scale)
-        return (xc * rstd * scale.double() + bias.double()).float()
+        return (xc * rstd * scale.double() + bias.double()).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad):
@@ -49,7 +53,7 @@ class _GroupNormFunction(torch.autograd.Function):
         g = grad * scale.double()
         shift = torch.sum(g, dim=(0, 2), keepdim=True) / count
         tilt = torch.sum(g * xhat, dim=(0, 2), keepdim=True) / count
-        grad_x = (rstd * (g - wd * (shift + xhat * tilt))).float()
+        grad_x = (rstd * (g - wd * (shift + xhat * tilt))).to(x.dtype)
         return grad_x, None, None, grad_scale, grad_bias, None
 
 
@@ -72,7 +76,7 @@ class MaskedGroupNorm(nn.Module):
     def forward(self, x: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = x.shape[-1]
         g = self.num_groups
-        xg = x.float().reshape(-1, g, c // g)
+        xg = x.reshape(-1, g, c // g)
         if masks is None:
             w = torch.ones((xg.shape[0], 1, 1), dtype=torch.float32, device=x.device)
         else:
@@ -82,4 +86,17 @@ class MaskedGroupNorm(nn.Module):
         out = _GroupNormFunction.apply(xg, w, count, scale, bias, self.eps).reshape(x.shape)
         if masks is not None:
             out = torch.where(masks[..., None], out, 0.0)
-        return out.to(x.dtype)
+        return out
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """LayerNorm over the channels of (..., C), eps 1e-6 (flax's), computed
+    in f32 and returned in the input's dtype; it takes the row masks of
+    `MaskedGroupNorm` and ignores them, as the JAX package's LayerNorm
+    blocks do (padded rows come out as the bias)."""
+
+    def __init__(self, num_channels: int):
+        super().__init__(num_channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)

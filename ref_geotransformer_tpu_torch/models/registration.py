@@ -122,12 +122,23 @@ def local_to_global_registration(
     matching_scores (P, K+1, K+1) log assignment with dustbin (or (P, K, K));
     node_corr_scores (P,).
     """
-    if use_dustbin:
-        raise ValueError("use_dustbin=True is not ported (no shipped configuration uses it)")
-    if matching_scores.shape[1] == ref_knn_points.shape[1] + 1:
-        matching_scores = matching_scores[:, :-1, :-1]
-    score_mat = torch.exp(matching_scores)
-    corr_mat = compute_correspondence_matrix(score_mat, ref_knn_masks, src_knn_masks, k, mutual, confidence_threshold)
+    has_dustbin = matching_scores.shape[1] == ref_knn_points.shape[1] + 1
+    if use_dustbin and has_dustbin:
+        # select with the dustbin row and column present (a point whose best
+        # matches include the dustbin is suppressed), then strip them
+        # (local_global_registration.py:56-84)
+        score_full = torch.exp(matching_scores)
+        ones = torch.ones_like(ref_knn_masks[:, :1])
+        corr_mat = compute_correspondence_matrix(score_full, torch.cat([ref_knn_masks, ones], dim=1),
+                                                 torch.cat([src_knn_masks, ones], dim=1), k, mutual,
+                                                 confidence_threshold)[:, :-1, :-1]
+        score_mat = score_full[:, :-1, :-1]
+    else:
+        if has_dustbin:
+            matching_scores = matching_scores[:, :-1, :-1]
+        score_mat = torch.exp(matching_scores)
+        corr_mat = compute_correspondence_matrix(score_mat, ref_knn_masks, src_knn_masks, k, mutual,
+                                                 confidence_threshold)
     p, kk, _ = score_mat.shape
 
     if use_global_score:

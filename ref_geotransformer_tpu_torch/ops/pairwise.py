@@ -5,6 +5,8 @@ Counterpart of `ref_geotransformer_tpu/ops/pairwise.py`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -22,10 +24,14 @@ def pairwise_distance(x: torch.Tensor, y: torch.Tensor, normalized: bool = False
     return torch.clamp(sq, min=0.0)
 
 
-def masked_pairwise_distance(x: torch.Tensor, y: torch.Tensor, x_masks: torch.Tensor,
-                             y_masks: torch.Tensor) -> torch.Tensor:
+def masked_pairwise_distance(x: torch.Tensor, y: torch.Tensor, x_masks: Optional[torch.Tensor] = None,
+                             y_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """pairwise_distance with invalid rows/cols set to 1e12 (masks are
-    validity masks: True = real point), so top-k and argmin never pick them."""
+    validity masks: True = real point; None = all valid), so top-k and
+    argmin never pick them."""
     sq = pairwise_distance(x, y)
-    sq = torch.where(x_masks[..., :, None], sq, 1e12)
-    return torch.where(y_masks[..., None, :], sq, 1e12)
+    if x_masks is not None:
+        sq = torch.where(x_masks[..., :, None], sq, 1e12)
+    if y_masks is not None:
+        sq = torch.where(y_masks[..., None, :], sq, 1e12)
+    return sq

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     module.bias.zero_()
             elif isinstance(module, KPConv):
                 module.reset_parameters(generator)
+            elif isinstance(module, nn.Embedding):
+                module.weight.copy_(torch.randn(module.weight.shape, generator=generator))
             elif isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
@@ -71,6 +73,8 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray):
         return modules + ["weight"], flat.T
     if name == "kernel":  # Dense (in, out) -> Linear (out, in)
         return modules + ["weight"], value.T
+    if name == "embedding":  # nn.Embed table (num_embeddings, dim) -> nn.Embedding weight, same layout
+        return modules + ["weight"], value
     is_norm = modules and modules[-1] in ("norm", "norm_conv")
     if is_norm and name in ("scale", "bias"):
         if modules[0] == "backbone":
@@ -83,21 +87,40 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray):
     raise KeyError("no torch counterpart for JAX variable " + "/".join(path))
 
 
-def from_jax_variables(variables: Dict) -> Dict[str, torch.Tensor]:
+def _norm_alternative(key: str) -> Optional[str]:
+    """The other nesting of a norm's affine key: `<block>.norm.norm.weight`
+    <-> `<block>.norm.weight` (also for `norm_conv`)."""
+    parts = key.split(".")
+    if len(parts) >= 3 and parts[-2] == "norm" and parts[-3] in ("norm", "norm_conv"):
+        return ".".join(parts[:-2] + parts[-1:])
+    if len(parts) >= 2 and parts[-2] in ("norm", "norm_conv"):
+        return ".".join(parts[:-1] + ["norm", parts[-1]])
+    return None
+
+
+def from_jax_variables(variables: Dict, keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
     """JAX `{"params": ..., "buffers": ...}` tree (numpy or jax arrays) ->
-    torch state dict. Norms in the backbone are GroupNorms (upstream
-    `<block>.norm.norm.weight`); the rest are LayerNorms (`<block>.norm.weight`)."""
+    torch state dict. Norms in the backbone are taken for GroupNorms
+    (upstream `<block>.norm.norm.weight`), the rest for LayerNorms
+    (`<block>.norm.weight`); a flax tree does not tell the two apart. With
+    the target's state-dict `keys`, a norm key the target lacks takes the
+    other nesting where the target has that (the backbone's LayerNorm
+    blocks, a group norm outside it)."""
+    keys = None if keys is None else set(keys)
     state = {}
     for collection in ("params", "buffers"):
         for path, value in _flat(variables.get(collection, {})):
             parts, arr = _torch_entry(path, np.asarray(value, dtype=np.float32))
-            state[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
+            key = ".".join(parts)
+            if keys is not None and key not in keys and _norm_alternative(key) in keys:
+                key = _norm_alternative(key)
+            state[key] = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
     return state
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Load a JAX variables tree into `model` (strict: every key must match)."""
-    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model.load_state_dict(from_jax_variables(variables, model.state_dict().keys()), strict=True)
     return model
 
 

@@ -77,12 +77,13 @@ def slice_setup():
     return cfg, arrays, jax.device_get(data), jax.device_get(variables), out
 
 
-def _jax_backbone(cfg, variables, data, dtype):
+def _jax_backbone(cfg, variables, data, dtype, act_dtype=None):
     b = cfg.backbone
     vmapped = fnn.vmap(JaxKPConvFPN, in_axes=0, out_axes=0, variable_axes={"params": None, "buffers": None},
                        split_rngs={"params": False}, axis_name="pair_norm")(
         b.input_dim, b.output_dim, b.init_dim, b.kernel_size, b.init_radius, b.init_sigma, b.group_norm,
-        b.num_stages, b.fine_level, jnp.bfloat16 if dtype == "bfloat16" else None, norm_axis_name="pair_norm")
+        b.num_stages, b.fine_level, jnp.bfloat16 if dtype == "bfloat16" else None, norm_axis_name="pair_norm",
+        activation_dtype=jnp.bfloat16 if act_dtype == "bfloat16" else None)
     stacked = jax.tree_util.tree_map(lambda r, s: jnp.stack([r, s]), data["ref"], data["src"])
     feats = jnp.stack([data["ref_feats"], data["src_feats"]])
     bb_vars = {"params": variables["params"]["backbone"], "buffers": variables["buffers"]["backbone"]}

@@ -108,7 +108,9 @@ def test_port_imports_no_jax():
         "        lm + 'trainval_encoder', lm + 'test', lm + 'fixture', 'config.kitti', 'data.calibration',\n"
         "        'data.datasets.kitti', kitti + 'config', kitti + 'dataset', kitti + 'trainval', kitti + 'test',\n"
         "        kitti + 'eval', kitti + 'fixture', 'models.cordi', lm + 'train_cordi', 'parallel.multihost',\n"
-        "        'parallel.mesh', 'parallel.dp')}\n"
+        "        'parallel.mesh', 'parallel.dp', 'utils.visualization', 'utils.convert_checkpoint',\n"
+        "        'models.factory', 'models.correspondence', 'models.attention', 'models.embedding',\n"
+        "        'ops.vector_angle', 'ops.metrics', 'ops.se3', 'ops.neighbors', 'ops.partition')}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
