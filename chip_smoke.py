@@ -125,7 +125,32 @@ Phases; any failure raises and the script exits non-zero:
      with the Sinkhorn kernel against plain on its inputs, the mean
      embedding's ms at N = 1024 and the step's peak memory; (d) a LineMod
      encoder validation with corr_dump_dir on phase 9's tree: the 6 PLYs of
-     its first pair written, 2 + 0 + 1 launches per pair and for the dump.
+     its first pair written, 2 + 0 + 1 launches per pair and for the dump;
+ 14. the scripts and the host C++: (a) `native` built with g++ (seconds
+     printed); on a raw LiDAR scan of a KITTI frame's size (120000 points
+     over 40 m) `grid_subsample_native` at 0.3 m against the card's
+     `grid_subsample` (same count, centroids within 1e-5 in voxel order) and
+     `radius_neighbors_native` against the card's `radius_search` at KITTI
+     level 0 (radius 1.275 m, limit 40; per-row sets, ties within NATIVE_TIE),
+     host ms beside card ms; (b) `tools.downsample_kitti` over a tree of 2 x 2
+     such scans: .npy files equal to native's, one pair's pyramid under
+     KITTI's caps at every level; (c) `eval_dgr --benchmark val --epochs 1 1`
+     over phase 8's dumps copied to features/val-epoch-1: best epoch 1 with
+     the RR of `eval --method lgr`; (d) the wrappers `eval.sh epoch-1 val` on
+     phase 8's tree and KITTI's `eval.sh epoch-1` on phase 10's, run by bash
+     from outside the repository: exit 0, one .npz per pair, a finite summary
+     with RR in [0, 1]; (e) the overfit probe through `run_probe`, from the
+     JAX probe's initial weights (`jax.random.key(0)`, drawn with numpy): (i)
+     the JAX slow test's regime (scale 0.06, 4 pairs, 30 steps, an evaluation
+     every 5, lr 1e-4) with its gates unchanged (no step skipped, the train
+     loss falling, RR over the last 3 evaluations >= 0.9, best RMSE < 0.1),
+     (ii) OVERFIT_PROBE_r03.json's (scale 0.25, 2 pairs, 200 steps, every
+     20): every row finite and unskipped, the train loss falling; for both,
+     2P + 2P + 0 launches a step and 2P + 0 + P an evaluation of P pairs,
+     ms/step, peak memory, the trajectory written to chiprun_out/, and after
+     each run the embedding kernels (forward and backward) on the trained
+     model and the coarse nodes of its last pair, and Sinkhorn on the scores
+     of that pair's evaluation, against their plain versions.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -172,6 +197,21 @@ VARIANT_DROPOUT = 0.1
 # phase 10: the KITTI odometry fixture (pairs per sequence: 2 train
 # sequences, 1 val, 1 test), scans sized like 0.3 m-downsampled ones
 KITTI_PAIRS_PER_SEQUENCE, KITTI_POINTS, KITTI_RADIUS = 2, 20000, 40.0
+# phase 14: raw LiDAR scans of one KITTI frame's size (a Velodyne HDL-64
+# sweep, ~120k points) over phase 10's 40 m disc, the ground 1.73 m below the
+# sensor (KITTI's mount height), for the host C++ kernels and the downsampling
+# tool (a tree of 2 sequences x 2 frames)
+RAW_SCAN_POINTS, SENSOR_HEIGHT, RAW_SEQUENCES, RAW_FRAMES = 120000, 1.73, ("00", "01"), 2
+# native against the card's radius_search: the card ranks by the f32 form
+# |q|^2 - 2 q.s + |s|^2, whose rounding grows with the squared norms (~1e-4 in
+# d^2 at 40 m), so a neighbor in only one row must tie with the row's farthest
+# within 1e-6 of 1 + |q|^2 + |s|^2
+NATIVE_TIE = 1e-6
+# phase 14 (e), the overfit probe: (i) the JAX slow test's regime and gates
+# (tests/test_overfit_registration.py:28-53); (ii) OVERFIT_PROBE_r03.json's
+PROBE_GATED = {"steps": 30, "scale": 0.06, "pairs": 4, "log_every": 5, "lr": 1e-4}
+PROBE_LONG = {"steps": 200, "scale": 0.25, "pairs": 2, "log_every": 20, "lr": None}
+WRAPPER_TIMEOUT_S = 300
 # the keys each test dump must hold (tests/test_fixture_cli_e2e.py)
 REQUIRED_NPZ_KEYS = {
     "ref_points", "src_points", "ref_points_c", "src_points_c", "ref_feats_c", "src_feats_c",
@@ -423,29 +463,27 @@ def scoped_env(keys, **values):
                 os.environ[key] = value
 
 
-def cli_chain(ck, dev, bare_ms):
-    """Phase 8 on the card; returns the kernel launches of its train,
-    validation and test passes."""
-    import tempfile
-
+def cli_chain(ck, dev, bare_ms, tmp):
+    """Phase 8 on the card, its tree and outputs under `tmp` (kept for phase
+    14); returns the kernel launches of its train, validation and test
+    passes."""
     from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import config, fixture, test, trainval
     from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval as offline_eval
 
     exp = types.SimpleNamespace(config=config, trainval=trainval, test=test, eval=offline_eval)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "3DMatch")
-        scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
-        fixture.make_fixture_tree(root, n_train=FIXTURE_TRAIN_PAIRS, n_val=FIXTURE_VAL_PAIRS, points=FIXTURE_POINTS,
-                                  real_base=scans)
-        keys = ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG", "REF_GT_CAPS_SCALE",
-                "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY")
-        with scoped_env(keys, REF_GT_3DMATCH_ROOT=root, REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
-                        REF_GT_USE_AUG="0"):
-            print(f"[cli] fixture tree: {FIXTURE_TRAIN_PAIRS} train and {FIXTURE_VAL_PAIRS} val pairs of "
-                  f"{FIXTURE_POINTS} points from the demo scans; caps {config.make_cfg().capacities.points}")
-            return epoch_chain(ck, dev, "cli", exp, FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, ["--benchmark", "val"],
-                               ["--benchmark", "val"], os.path.join(config.FEATURE_DIR, "val"), bare_ms=bare_ms)
+    root = os.path.join(tmp, "3DMatch")
+    scans = [os.path.join(ROOT, "data", "demo", f"{name}.npy") for name in ("ref", "src")]
+    fixture.make_fixture_tree(root, n_train=FIXTURE_TRAIN_PAIRS, n_val=FIXTURE_VAL_PAIRS, points=FIXTURE_POINTS,
+                              real_base=scans)
+    keys = ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG", "REF_GT_CAPS_SCALE",
+            "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY")
+    with scoped_env(keys, REF_GT_3DMATCH_ROOT=root, REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output"),
+                    REF_GT_USE_AUG="0"):
+        print(f"[cli] fixture tree: {FIXTURE_TRAIN_PAIRS} train and {FIXTURE_VAL_PAIRS} val pairs of "
+              f"{FIXTURE_POINTS} points from the demo scans; caps {config.make_cfg().capacities.points}")
+        return epoch_chain(ck, dev, "cli", exp, FIXTURE_TRAIN_PAIRS, FIXTURE_VAL_PAIRS, ["--benchmark", "val"],
+                           ["--benchmark", "val"], os.path.join(config.FEATURE_DIR, "val"), bare_ms=bare_ms)
 
 
 def expected_lr(optim, total, step):
@@ -683,11 +721,11 @@ def linemod_chain(ck, dev, card, kc, tmp):
     return tuple(sum(r["launches"][i] for kind in records.values() for r in kind) for i in range(3))
 
 
-def kitti_chain(ck, dev, card, kc):
-    """Phase 10 on the card; returns the kernel launches of its train,
-    validation and test passes. `kc` holds main's kernel checks."""
+def kitti_chain(ck, dev, card, kc, tmp):
+    """Phase 10 on the card, its tree and outputs under `tmp` (kept for
+    phase 14); returns the kernel launches of its train, validation and
+    test passes. `kc` holds main's kernel checks."""
     import math
-    import tempfile
     import time
 
     import torch
@@ -705,126 +743,125 @@ def kitti_chain(ck, dev, card, kc):
     exp = types.SimpleNamespace(config=config, trainval=trainval, test=test, eval=offline_eval)
     n_train, n_val = 2 * KITTI_PAIRS_PER_SEQUENCE, KITTI_PAIRS_PER_SEQUENCE
     splits = ((("00", KITTI_PAIRS_PER_SEQUENCE), ("01", KITTI_PAIRS_PER_SEQUENCE)), (("06", n_val),), (("08", n_val),))
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "Kitti")
-        fixture.make_fixture_tree(root, splits, points=KITTI_POINTS, radius=KITTI_RADIUS, falloff=True)
-        with scoped_env(("REF_GT_KITTI_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_CAPS_SCALE"), REF_GT_KITTI_ROOT=root,
-                        REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output")):
-            cfg = config.make_cfg()
-            caps = cfg.capacities.points
-            gt = cfg.geotransformer
-            print(f"[kitti] {card}: fixture odometry tree of {n_train} train, {n_val} val and {n_val} test pairs, "
-                  f"scans of {KITTI_POINTS} points over {KITTI_RADIUS:.0f} m (the ground thinned with range); caps "
-                  f"{caps}, neighbor limits {cfg.capacities.neighbor_limits}, K = {cfg.model.num_points_in_patch}, "
-                  f"{cfg.coarse_matching.num_correspondences} correspondences, hidden {gt.hidden_dim}")
+    root = os.path.join(tmp, "Kitti")
+    fixture.make_fixture_tree(root, splits, points=KITTI_POINTS, radius=KITTI_RADIUS, falloff=True)
+    with scoped_env(("REF_GT_KITTI_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_CAPS_SCALE"), REF_GT_KITTI_ROOT=root,
+                    REF_GT_OUTPUT_ROOT=os.path.join(tmp, "output")):
+        cfg = config.make_cfg()
+        caps = cfg.capacities.points
+        gt = cfg.geotransformer
+        print(f"[kitti] {card}: fixture odometry tree of {n_train} train, {n_val} val and {n_val} test pairs, "
+              f"scans of {KITTI_POINTS} points over {KITTI_RADIUS:.0f} m (the ground thinned with range); caps "
+              f"{caps}, neighbor limits {cfg.capacities.neighbor_limits}, K = {cfg.model.num_points_in_patch}, "
+              f"{cfg.coarse_matching.num_correspondences} correspondences, hidden {gt.hidden_dim}")
 
-            # 10.1 every level of every unaugmented scan under its cap; the
-            # coarse level at least half full
-            for subset in ("val", "test"):
-                for pair, meta in PairLoader(OdometryKittiPairDataset(root, subset), cfg).iter_single():
-                    data = ensure_pyramids(cfg, to_device(pair, dev))
-                    for side in ("ref", "src"):
-                        counts = [int(m.sum()) for m in data[side]["masks"]]
-                        print(f"[kitti:levels] {subset} {meta['scene_name']} {meta['ref_frame']}-{meta['src_frame']} "
-                              f"{side}: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
-                        check(all(n < c for n, c in zip(counts, caps)), f"kitti {subset} {side}: a level is full "
-                                                                         f"(voxels may have been dropped): {counts}")
-                        check(counts[-1] >= caps[-1] // 2, f"kitti {subset} {side}: coarse level {counts[-1]} of "
-                                                           f"{caps[-1]}, under half")
+        # 10.1 every level of every unaugmented scan under its cap; the
+        # coarse level at least half full
+        for subset in ("val", "test"):
+            for pair, meta in PairLoader(OdometryKittiPairDataset(root, subset), cfg).iter_single():
+                data = ensure_pyramids(cfg, to_device(pair, dev))
+                for side in ("ref", "src"):
+                    counts = [int(m.sum()) for m in data[side]["masks"]]
+                    print(f"[kitti:levels] {subset} {meta['scene_name']} {meta['ref_frame']}-{meta['src_frame']} "
+                          f"{side}: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
+                    check(all(n < c for n, c in zip(counts, caps)), f"kitti {subset} {side}: a level is full "
+                                                                     f"(voxels may have been dropped): {counts}")
+                    check(counts[-1] >= caps[-1] // 2, f"kitti {subset} {side}: coarse level {counts[-1]} of "
+                                                       f"{caps[-1]}, under half")
 
-            # 10.2 the kernels on one forward's own inputs (the last test pair)
-            model = demo.build_model(cfg, dev, seed=0)
-            captured = {}
-            hook = model.optimal_transport.register_forward_pre_hook(
-                lambda module, inputs: captured.update(inputs=inputs))
-            out = model(data)
-            hook.remove()
-            nodes, node_masks = data["src"]["points"][-1], data["src"]["masks"][-1]
-            check(nodes.shape[0] == caps[-1], f"kitti: {nodes.shape[0]} src nodes, expected {caps[-1]}")
-            kc.check_embedding(model, nodes, node_masks)
-            ot = model.optimal_transport
-            with torch.no_grad():
-                padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
-            k1 = cfg.model.num_points_in_patch + 1
-            check(tuple(padded.shape) == (cfg.coarse_matching.num_correspondences, k1, k1),
-                  f"kitti: Sinkhorn batch {tuple(padded.shape)}")
-            sinkhorn = kc.check_sinkhorn("KITTI path", padded, log_mu, log_nu, ot.num_iterations)
-            rows = {"geo_embedding": (kc.emb_rows[-1][2], kc.roofline(*kc.embedding_work(
-                        caps[-1], gt.angle_k, gt.hidden_dim, backward=False), kc.peak_product)[0]),
-                    "geo_embedding_bwd": (kc.bwd_rows[-1][3], kc.roofline(*kc.embedding_work(
-                        caps[-1], gt.angle_k, gt.hidden_dim, backward=True), kc.peak_product)[0]),
-                    "sinkhorn": (sinkhorn["ms"], sinkhorn["bound_ms"])}
-            for name, (ms, bound_ms) in rows.items():
-                print(f"[kitti:kernel] {card}: {name} at the KITTI shapes: {ms:.4f} ms against a bound of "
-                      f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it")
-            check(bool(torch.isfinite(out["estimated_transform"]).all()), "kitti forward: non-finite transform")
-            del model, out, captured, padded, log_mu, log_nu
+        # 10.2 the kernels on one forward's own inputs (the last test pair)
+        model = demo.build_model(cfg, dev, seed=0)
+        captured = {}
+        hook = model.optimal_transport.register_forward_pre_hook(
+            lambda module, inputs: captured.update(inputs=inputs))
+        out = model(data)
+        hook.remove()
+        nodes, node_masks = data["src"]["points"][-1], data["src"]["masks"][-1]
+        check(nodes.shape[0] == caps[-1], f"kitti: {nodes.shape[0]} src nodes, expected {caps[-1]}")
+        kc.check_embedding(model, nodes, node_masks)
+        ot = model.optimal_transport
+        with torch.no_grad():
+            padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+        k1 = cfg.model.num_points_in_patch + 1
+        check(tuple(padded.shape) == (cfg.coarse_matching.num_correspondences, k1, k1),
+              f"kitti: Sinkhorn batch {tuple(padded.shape)}")
+        sinkhorn = kc.check_sinkhorn("KITTI path", padded, log_mu, log_nu, ot.num_iterations)
+        rows = {"geo_embedding": (kc.emb_rows[-1][2], kc.roofline(*kc.embedding_work(
+                    caps[-1], gt.angle_k, gt.hidden_dim, backward=False), kc.peak_product)[0]),
+                "geo_embedding_bwd": (kc.bwd_rows[-1][3], kc.roofline(*kc.embedding_work(
+                    caps[-1], gt.angle_k, gt.hidden_dim, backward=True), kc.peak_product)[0]),
+                "sinkhorn": (sinkhorn["ms"], sinkhorn["bound_ms"])}
+        for name, (ms, bound_ms) in rows.items():
+            print(f"[kitti:kernel] {card}: {name} at the KITTI shapes: {ms:.4f} ms against a bound of "
+                  f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it")
+        check(bool(torch.isfinite(out["estimated_transform"]).all()), "kitti forward: non-finite transform")
+        del model, out, captured, padded, log_mu, log_nu
 
-            # 10.3 the f32 forward and one f32 Adam train step, kernels against plain
-            with_kernels = demo.build_model(cfg, dev, seed=1)
-            plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
-            a, b = with_kernels(data), plain(data)
-            torch.cuda.synchronize()
-            feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
-            print(f"[kitti:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
-                  f"(bound {PATH_FEATS_BOUND:.0e})")
-            check(feats_err <= PATH_FEATS_BOUND, f"kitti forward: ref_feats_c differs by {feats_err}")
-            del a, b
-            grads, step_losses = [], []
-            for model in (with_kernels, plain):
-                state = TrainState(model, cfg.optim, steps_per_epoch=1)
-                losses = train_step(model, state, data, torch.Generator(device=dev).manual_seed(5))
-                check(state.count == 1 and state.skipped == 0, "kitti f32 train step: the update was skipped")
-                step_losses.append({key: float(v) for key, v in losses.items()})
-                emb = model.transformer.embedding
-                grads.append({f"{proj}.{leaf}": getattr(getattr(emb, proj), leaf).grad
-                              for proj in ("proj_d", "proj_a") for leaf in ("weight", "bias")})
-            loss_err = max(abs(step_losses[0][key] - step_losses[1][key]) / abs(step_losses[1][key])
-                           for key in ("loss", "c_loss", "f_loss"))
-            grad_scale = max(float(g.abs().max()) for g in grads[1].values())
-            grad_errs = {name: float((g - grads[1][name]).abs().max()) / grad_scale for name, g in grads[0].items()}
-            print(f"[kitti:f32] {card}: Adam train step, kernels vs plain: loss {step_losses[0]['loss']:.6f} vs "
-                  f"{step_losses[1]['loss']:.6f}; losses within {loss_err:.3e} relative (bound "
-                  f"{TRAIN_LOSS_BOUND:.0e}); embedding gradients (largest magnitude {grad_scale:.3e}), error over it: "
-                  + ", ".join(f"{name} {e:.3e}" for name, e in grad_errs.items()) + f" (bound {TRAIN_GRAD_BOUND:.0e})")
-            check(all(math.isfinite(v) for s in step_losses for v in s.values()), "kitti f32 train: non-finite loss")
-            check(loss_err <= TRAIN_LOSS_BOUND, f"kitti f32 train: losses differ by {loss_err}")
-            check(all(e <= TRAIN_GRAD_BOUND for e in grad_errs.values()), f"kitti f32 train: gradients differ: {grad_errs}")
-            del with_kernels, plain, grads, data, state
-            torch.cuda.empty_cache()
+        # 10.3 the f32 forward and one f32 Adam train step, kernels against plain
+        with_kernels = demo.build_model(cfg, dev, seed=1)
+        plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
+        a, b = with_kernels(data), plain(data)
+        torch.cuda.synchronize()
+        feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+        print(f"[kitti:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
+              f"(bound {PATH_FEATS_BOUND:.0e})")
+        check(feats_err <= PATH_FEATS_BOUND, f"kitti forward: ref_feats_c differs by {feats_err}")
+        del a, b
+        grads, step_losses = [], []
+        for model in (with_kernels, plain):
+            state = TrainState(model, cfg.optim, steps_per_epoch=1)
+            losses = train_step(model, state, data, torch.Generator(device=dev).manual_seed(5))
+            check(state.count == 1 and state.skipped == 0, "kitti f32 train step: the update was skipped")
+            step_losses.append({key: float(v) for key, v in losses.items()})
+            emb = model.transformer.embedding
+            grads.append({f"{proj}.{leaf}": getattr(getattr(emb, proj), leaf).grad
+                          for proj in ("proj_d", "proj_a") for leaf in ("weight", "bias")})
+        loss_err = max(abs(step_losses[0][key] - step_losses[1][key]) / abs(step_losses[1][key])
+                       for key in ("loss", "c_loss", "f_loss"))
+        grad_scale = max(float(g.abs().max()) for g in grads[1].values())
+        grad_errs = {name: float((g - grads[1][name]).abs().max()) / grad_scale for name, g in grads[0].items()}
+        print(f"[kitti:f32] {card}: Adam train step, kernels vs plain: loss {step_losses[0]['loss']:.6f} vs "
+              f"{step_losses[1]['loss']:.6f}; losses within {loss_err:.3e} relative (bound "
+              f"{TRAIN_LOSS_BOUND:.0e}); embedding gradients (largest magnitude {grad_scale:.3e}), error over it: "
+              + ", ".join(f"{name} {e:.3e}" for name, e in grad_errs.items()) + f" (bound {TRAIN_GRAD_BOUND:.0e})")
+        check(all(math.isfinite(v) for s in step_losses for v in s.values()), "kitti f32 train: non-finite loss")
+        check(loss_err <= TRAIN_LOSS_BOUND, f"kitti f32 train: losses differ by {loss_err}")
+        check(all(e <= TRAIN_GRAD_BOUND for e in grad_errs.values()), f"kitti f32 train: gradients differ: {grad_errs}")
+        del with_kernels, plain, grads, data, state
+        torch.cuda.empty_cache()
 
-            # 10.4 trainval -> test -> eval; every pyramid the chain builds
-            # (augmented train pairs too) is held under its caps
-            level_counts = []
+        # 10.4 trainval -> test -> eval; every pyramid the chain builds
+        # (augmented train pairs too) is held under its caps
+        level_counts = []
 
-            def recorded(*args, **kwargs):
-                out = build_inputs(*args, **kwargs)
-                level_counts.append(torch.stack([m.sum() for side in ("ref", "src") for m in out[side]["masks"]]))
-                return out
+        def recorded(*args, **kwargs):
+            out = build_inputs(*args, **kwargs)
+            level_counts.append(torch.stack([m.sum() for side in ("ref", "src") for m in out[side]["masks"]]))
+            return out
 
-            build_inputs = steps_mod.build_registration_inputs
-            steps_mod.build_registration_inputs = recorded
-            try:
-                launches = epoch_chain(ck, dev, "kitti", exp, n_train, n_val, [], [], config.FEATURE_DIR)
-            finally:
-                steps_mod.build_registration_inputs = build_inputs
-            counts = torch.stack(level_counts).view(len(level_counts), 2, len(caps)).amax(dim=(0, 1)).tolist()
-            print(f"[kitti:levels] {card}: largest valid count per level over the {len(level_counts)} pairs the chain "
-                  "built: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
-            check(len(level_counts) == n_train + 2 * n_val and all(n < c for n, c in zip(counts, caps)),
-                  f"kitti chain: {len(level_counts)} pyramids, largest counts {counts} against caps {caps}")
+        build_inputs = steps_mod.build_registration_inputs
+        steps_mod.build_registration_inputs = recorded
+        try:
+            launches = epoch_chain(ck, dev, "kitti", exp, n_train, n_val, [], [], config.FEATURE_DIR)
+        finally:
+            steps_mod.build_registration_inputs = build_inputs
+        counts = torch.stack(level_counts).view(len(level_counts), 2, len(caps)).amax(dim=(0, 1)).tolist()
+        print(f"[kitti:levels] {card}: largest valid count per level over the {len(level_counts)} pairs the chain "
+              "built: " + ", ".join(f"{n}/{c}" for n, c in zip(counts, caps)))
+        check(len(level_counts) == n_train + 2 * n_val and all(n < c for n, c in zip(counts, caps)),
+              f"kitti chain: {len(level_counts)} pyramids, largest counts {counts} against caps {caps}")
 
-            # 10.5 calibration on the tree's train pairs, beside the config
-            t0 = time.perf_counter()
-            train_set = OdometryKittiPairDataset(root, "train")
-            bb = cfg.backbone
-            cal_caps = calibrate_capacities(train_set, bb.num_stages, bb.init_voxel_size, device=dev)
-            cal_limits = calibrate_neighbor_limits(train_set, bb.num_stages, bb.init_voxel_size, bb.init_radius, caps,
-                                                   device=dev)
-            print(f"[kitti:calibration] {card}: capacities {cal_caps} (config {caps}), neighbor limits {cal_limits} "
-                  f"(config {cfg.capacities.neighbor_limits}) over the {len(train_set)} unaugmented train pairs, "
-                  f"{time.perf_counter() - t0:.2f} s")
-            check(all(x > 0 for x in cal_caps + cal_limits), "kitti calibration: a zero capacity or limit")
+        # 10.5 calibration on the tree's train pairs, beside the config
+        t0 = time.perf_counter()
+        train_set = OdometryKittiPairDataset(root, "train")
+        bb = cfg.backbone
+        cal_caps = calibrate_capacities(train_set, bb.num_stages, bb.init_voxel_size, device=dev)
+        cal_limits = calibrate_neighbor_limits(train_set, bb.num_stages, bb.init_voxel_size, bb.init_radius, caps,
+                                               device=dev)
+        print(f"[kitti:calibration] {card}: capacities {cal_caps} (config {caps}), neighbor limits {cal_limits} "
+              f"(config {cfg.capacities.neighbor_limits}) over the {len(train_set)} unaugmented train pairs, "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(all(x > 0 for x in cal_caps + cal_limits), "kitti calibration: a zero capacity or limit")
     return launches
 
 
@@ -1603,6 +1640,263 @@ def surface_chain(ck, dev, card, kc, tmp):
     return tuple(launches)
 
 
+def scripts_chain(ck, dev, card, kc, cli_tmp, kitti_tmp):
+    """Phase 14 on the card; returns the kernel launches of the two probe
+    runs. `kc` holds main's kernel checks."""
+    import ast
+    import glob
+    import math
+    import shutil
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    from ref_geotransformer_tpu_torch import native
+    from ref_geotransformer_tpu_torch.data import build_pyramid, pad_points
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import config as m_config
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval as m_eval
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_3dmatch_stage4 import eval_dgr
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import config as k_config
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import fixture as k_fixture
+    from ref_geotransformer_tpu_torch.ops.neighbors import radius_search
+    from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
+    from ref_geotransformer_tpu_torch.tools import downsample_kitti
+    from ref_geotransformer_tpu_torch.tools import overfit_probe as probe
+    from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+
+    def raw_scan():
+        xyz = k_fixture._scan(rng, RAW_SCAN_POINTS, KITTI_RADIUS, True)
+        xyz[:, 2] -= SENSOR_HEIGHT
+        return xyz
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return out, min(times)
+
+    # (a) the host C++ kernels against the card's pyramid ops on one raw scan
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[native] {card}: g++ build {time.perf_counter() - t0:.2f} s ({native.LIBRARY}; a library newer than its "
+          f"source is reused)")
+    kcfg = k_config.make_cfg()
+    bb, kcaps = kcfg.backbone, kcfg.capacities
+    voxel, radius, limit = bb.init_voxel_size, bb.init_radius, kcaps.neighbor_limits[0]
+    scan = raw_scan()
+    (down, total), grid_host_ms = host_ms(lambda: native.grid_subsample_native(scan, voxel))
+    points = torch.from_numpy(scan).to(dev)
+    masks = torch.ones(points.shape[0], dtype=torch.bool, device=dev)
+    card_points, card_masks = grid_subsample(points, masks, voxel, points.shape[0])
+    grid_card_ms = cuda_ms(lambda: grid_subsample(points, masks, voxel, points.shape[0]))
+    count = int(card_masks.sum())
+    # both emit voxels in (z, y, x) index order: compare row by row
+    grid_err = float(np.abs(card_points[:count].cpu().numpy() - down).max()) if count == total else float("inf")
+    print(f"[native] {card}: grid_subsample of a {RAW_SCAN_POINTS}-point scan at {voxel} m: {total} voxels on the "
+          f"host, {count} on the card; centroids within {grid_err:.3e} (bound 1e-5); host {grid_host_ms:.2f} ms, "
+          f"card {grid_card_ms:.3f} ms")
+    check(count == total, f"native grid_subsample: {total} voxels, the card's grid_subsample {count}")
+    check(bool(card_masks[:count].all()), "card grid_subsample: its valid voxels are not first")
+    check(grid_err <= 1e-5, f"native grid_subsample: centroids differ from the card's by {grid_err}")
+    host_table, radius_host_ms = host_ms(lambda: native.radius_neighbors_native(down, down, radius, limit))
+    q = torch.from_numpy(down).to(dev)
+    qm = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    card_table = radius_search(q, q, qm, qm, radius, limit, kcaps.search_chunk)
+    radius_card_ms = cuda_ms(lambda: radius_search(q, q, qm, qm, radius, limit, kcaps.search_chunk), iters=3, warmup=1)
+    differ, bad, worst = table_mismatches(host_table, card_table.cpu().numpy(), down, down, NATIVE_TIE, scaled=True)
+    filled = float((host_table < down.shape[0]).sum(1).mean())
+    print(f"[native] {card}: radius_neighbors over the {total} voxels, radius {radius} m, limit {limit} (KITTI level "
+          f"0; {filled:.1f} neighbors a row): {differ} rows differ as sets or in column 0, {len(bad)} beyond ties "
+          f"(largest gap {worst:.3f} of its tolerance); host {radius_host_ms:.2f} ms, card {radius_card_ms:.3f} ms")
+    check(not bad, f"native radius_neighbors: {len(bad)} rows differ from the card's radius_search beyond ties: "
+                   f"{bad[:5]}")
+    del points, masks, card_points, card_masks, q, qm, card_table
+
+    # (b) downsample_kitti over a tree of raw scans; one pair's pyramid under KITTI's caps
+    with tempfile.TemporaryDirectory() as raw_tmp:
+        scans = {}
+        for seq in RAW_SEQUENCES:
+            velodyne = os.path.join(raw_tmp, "sequences", seq, "velodyne")
+            os.makedirs(velodyne)
+            for frame in range(RAW_FRAMES):
+                xyz = raw_scan()
+                scans[(seq, frame)] = xyz
+                np.concatenate([xyz, rng.uniform(0, 1, (len(xyz), 1)).astype(np.float32)], 1).tofile(
+                    os.path.join(velodyne, f"{frame:06d}.bin"))
+        t0 = time.perf_counter()
+        downsample_kitti.main(["--input_root", os.path.join(raw_tmp, "sequences"), "--output_root",
+                               os.path.join(raw_tmp, "downsampled"), "--voxel_size", str(voxel)])
+        tool_s = time.perf_counter() - t0
+        clouds = {}
+        for (seq, frame), xyz in scans.items():
+            path = os.path.join(raw_tmp, "downsampled", seq, f"{frame:06d}.npy")
+            clouds[(seq, frame)] = np.load(path)
+            want = native.grid_subsample_native(xyz, voxel)[0]
+            check(clouds[(seq, frame)].tobytes() == want.tobytes(), f"downsample_kitti: {path} differs from native's")
+        sizes = [len(c) for c in clouds.values()]
+        counts = []
+        for xyz in (clouds[(RAW_SEQUENCES[0], 0)], clouds[(RAW_SEQUENCES[0], 1)]):
+            padded, pad_masks = pad_points(xyz, kcaps.points[0])
+            pyr = build_pyramid(torch.from_numpy(padded).to(dev), torch.from_numpy(pad_masks).to(dev), bb.num_stages,
+                                voxel, radius, kcaps.neighbor_limits, kcaps.points, kcaps.search_chunk)
+            counts.append([int(m.sum()) for m in pyr["masks"]])
+        print(f"[downsample_kitti] {card}: {len(scans)} scans of {RAW_SCAN_POINTS} points in {tool_s:.2f} s, "
+              f".npy files equal to native's ({', '.join(map(str, sizes))} points); one pair's levels: "
+              + "; ".join(", ".join(f"{n}/{c}" for n, c in zip(cnt, kcaps.points)) for cnt in counts))
+        check(all(n < c for cnt in counts for n, c in zip(cnt, kcaps.points)), f"downsample_kitti: a level is full: "
+                                                                               f"{counts} against {kcaps.points}")
+
+    # (c) eval_dgr over phase 8's dumps, copied to the per-epoch directory
+    # that eval_dgr reads (test.py writes FEATURE_DIR/<benchmark>)
+    env_3dmatch = {"REF_GT_3DMATCH_ROOT": os.path.join(cli_tmp, "3DMatch"),
+                   "REF_GT_OUTPUT_ROOT": os.path.join(cli_tmp, "output"), "REF_GT_USE_AUG": "0"}
+    keys = ("REF_GT_3DMATCH_ROOT", "REF_GT_OUTPUT_ROOT", "REF_GT_USE_AUG", "REF_GT_CAPS_SCALE",
+            "REF_GT_NEIGHBOR_LIMITS", "REF_GT_VAL_EVERY", "REF_GT_KITTI_ROOT")
+    with scoped_env(keys, **env_3dmatch):
+        val_dir = os.path.join(m_config.FEATURE_DIR, "val")
+        lgr = m_eval.main(["--benchmark", "val", "--method", "lgr"])
+        shutil.copytree(val_dir, val_dir + "-epoch-1")
+        best = eval_dgr.main(["--benchmark", "val", "--epochs", "1", "1"])
+        check(best is not None and best[0] == 1, f"eval_dgr: best epoch {best and best[0]}, expected 1")
+        check(best[1]["RR"] == lgr["RR"], f"eval_dgr: RR {best[1]['RR']}, eval --method lgr {lgr['RR']}")
+        print(f"[eval_dgr] {card}: best epoch 1, RR {best[1]['RR']:.4f} (eval --method lgr on phase 8's dumps: "
+              f"{lgr['RR']:.4f})")
+        shutil.rmtree(val_dir)
+
+    # (d) the wrappers, each a shell running test then eval as subprocesses,
+    # from a directory outside the repository
+    def wrapper(exp, args, env, feature_dir, n_pairs, tag):
+        script = os.path.join(ROOT, "ref_geotransformer_tpu_torch", "experiments", exp, "eval.sh")
+        env = {**{k: v for k, v in os.environ.items() if k not in keys and k != "PYTHONPATH"}, **env}
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", script, *args], capture_output=True, text=True, env=env, cwd=os.path.dirname(
+            feature_dir), timeout=WRAPPER_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{tag} eval.sh exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                    f"{proc.stderr[-3000:]}")
+        dumps = sorted(glob.glob(os.path.join(feature_dir, "*.npz")))
+        check(len(dumps) == n_pairs, f"{tag} eval.sh wrote {len(dumps)} .npz dumps, expected {n_pairs}")
+        # test prints its online summary, then eval its offline one: a dict a line each
+        summaries = [ast.literal_eval(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        check(len(summaries) == 2 and all("RR" in s for s in summaries),
+              f"{tag} eval.sh: expected the test's and the eval's summary lines in\n{proc.stdout[-3000:]}")
+        for summary in summaries:
+            check(all(math.isfinite(v) for v in summary.values()), f"{tag} eval.sh: non-finite summary {summary}")
+            check(0.0 <= summary["RR"] <= 1.0, f"{tag} eval.sh: RR {summary['RR']} outside [0, 1]")
+        summary = summaries[-1]
+        print(f"[wrapper:{tag}] {card}: bash eval.sh {' '.join(args)}: exit 0 in {seconds:.1f} s, {len(dumps)} .npz "
+              f"dumps; " + ", ".join(f"{k} {v}" for k, v in summary.items()))
+
+    with scoped_env(keys, **env_3dmatch):
+        feature_dir = os.path.join(m_config.FEATURE_DIR, "val")
+    wrapper("geotransformer_3dmatch_stage4", ["epoch-1", "val"], env_3dmatch, feature_dir, FIXTURE_VAL_PAIRS, "3dmatch")
+    env_kitti = {"REF_GT_KITTI_ROOT": os.path.join(kitti_tmp, "Kitti"),
+                 "REF_GT_OUTPUT_ROOT": os.path.join(kitti_tmp, "output")}
+    with scoped_env(keys, **env_kitti):
+        feature_dir = k_config.FEATURE_DIR
+    shutil.rmtree(feature_dir)
+    wrapper("geotransformer_kitti_stage5", ["epoch-1"], env_kitti, feature_dir, KITTI_PAIRS_PER_SEQUENCE, "kitti")
+
+    # (e) the overfit probe through run_probe; each train step and evaluation
+    # timed to a synchronize and its launches counted, and the model and pairs
+    # of the last evaluation kept
+    records = {"train": [], "eval": []}
+    last_eval = {}
+
+    def counted(kind, fn):
+        def wrapped(*args, **kwargs):
+            before = read_counts(ck)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            records[kind].append((1e3 * (time.perf_counter() - t0),
+                                  tuple(x - y for x, y in zip(read_counts(ck), before))))
+            if kind == "eval":
+                last_eval["args"] = args
+            return out
+        return wrapped
+
+    originals = probe.train_pairs, probe.evaluate_pairs
+    probe.train_pairs, probe.evaluate_pairs = counted("train", probe.train_pairs), counted("eval", probe.evaluate_pairs)
+    totals = [0, 0, 0]
+    try:
+        for tag, regime in (("i", PROBE_GATED), ("ii", PROBE_LONG)):
+            records["train"].clear()
+            records["eval"].clear()
+            p = regime["pairs"]
+            out = os.path.join(ROOT, "chiprun_out", f"overfit_probe_{tag}.json")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts(ck)
+            t0 = time.perf_counter()
+            result = probe.run_probe(**regime, out=out, device="cuda")
+            seconds = time.perf_counter() - t0
+            counts = read_counts(ck)
+            totals = [a + b for a, b in zip(totals, counts)]
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            traj = result["trajectory"]
+            steps, evals = records["train"], records["eval"]
+            check(len(steps) == regime["steps"] and len(evals) == len(traj),
+                  f"probe ({tag}): {len(steps)} train steps and {len(evals)} evaluations timed")
+            check(all(r[1] == (2 * p, 2 * p, 0) for r in steps),
+                  f"probe ({tag}): a train step's launches differ from {(2 * p, 2 * p, 0)}: "
+                  f"{sorted({r[1] for r in steps})}")
+            check(all(r[1] == (2 * p, 0, p) for r in evals),
+                  f"probe ({tag}): an evaluation's launches differ from {(2 * p, 0, p)}: {sorted({r[1] for r in evals})}")
+            check(counts == tuple(sum(r[1][i] for r in steps + evals) for i in range(3)),
+                  f"probe ({tag}): {counts} launches in all, not the steps' and evaluations'")
+            warm = [ms for ms, _ in steps[1:]]
+            check(all(math.isfinite(v) for row in traj for v in row.values()), f"probe ({tag}): a non-finite row")
+            check(all(row["skipped_steps"] == 0 for row in traj), f"probe ({tag}): skipped steps "
+                                                                   f"{[row['skipped_steps'] for row in traj]}")
+            check(len(traj) > 2 and traj[-1]["train_loss"] < traj[1]["train_loss"],
+                  f"probe ({tag}): train loss {traj[1]['train_loss']} -> {traj[-1]['train_loss']}, not falling")
+            window = traj[-3:]
+            mean_rr = sum(row["RR"] for row in window) / len(window)
+            best_rmse = min(row["RMSE"] for row in traj)
+            print(f"[probe:{tag}] {card}: scale {regime['scale']}, {p} pairs, {regime['steps']} steps, caps "
+                  f"{probe.probe_config(regime['scale']).capacities.points}: {seconds:.1f} s in all; "
+                  f"{sum(warm) / len(warm):.2f} ms/step over steps 2-{len(steps)} (first {steps[0][0]:.2f} ms), "
+                  f"{sum(ms for ms, _ in evals) / len(evals):.2f} ms per evaluation of {p} pairs; peak memory "
+                  f"{peak:.2f} GiB; launches per step {steps[0][1]}, per evaluation {evals[0][1]}, in all {counts}; "
+                  f"train loss {traj[1]['train_loss']} -> {traj[-1]['train_loss']}, RR over the last 3 evaluations "
+                  f"{mean_rr:.4f}, best RMSE {best_rmse}; trajectory in {os.path.relpath(out, ROOT)}")
+            # the three kernels against their plain versions on the probe's own
+            # inputs: the trained model, the coarse nodes of its last pair and
+            # the Sinkhorn scores of that pair's evaluation (these launches come
+            # after the count)
+            model, inputs = last_eval.pop("args")
+            data = inputs[-1]
+            print(f"[probe:{tag}] the kernels on the trained model and pair {len(inputs) - 1}'s inputs:")
+            kc.check_embedding(model, data["src"]["points"][-1], data["src"]["masks"][-1])
+            captured = {}
+            hook = model.optimal_transport.register_forward_pre_hook(
+                lambda module, inputs: captured.update(inputs=inputs))
+            with torch.no_grad():
+                model(data)
+            hook.remove()
+            ot = model.optimal_transport
+            with torch.no_grad():
+                padded, log_mu, log_nu, _ = ot.prepare(*captured["inputs"])
+            kc.check_sinkhorn(f"probe ({tag})", padded, log_mu, log_nu, ot.num_iterations)
+            del model, inputs, data, captured, padded, log_mu, log_nu
+            if regime is PROBE_GATED:  # tests/test_overfit_registration.py's gates, unchanged
+                check(mean_rr >= 0.9, f"probe (i): RR over the last 3 evaluations {mean_rr} < 0.9: "
+                                      f"{[(row['step'], row['RR']) for row in traj]}")
+                check(best_rmse < 0.1, f"probe (i): RMSE never dropped below 0.1 (best {best_rmse})")
+    finally:
+        probe.train_pairs, probe.evaluate_pairs = originals
+    print(f"[scripts] {card}: phase 14 took {time.perf_counter() - phase_t0:.1f} s")
+    return tuple(totals)
+
+
 def main():
     import torch
 
@@ -1916,35 +2210,44 @@ def main():
     del model, state
     torch.cuda.empty_cache()
 
-    # 8. the CLI chain: trainval -> test -> eval on a fixture tree
-    for name, count in zip(launches, cli_chain(ck, dev, mean_ms)):
-        launches[name] += count
-
-    # 9. the LineMod encoder experiment: trainval_encoder -> test, its trees
-    # and snapshots kept for phase 11
-    kc = types.SimpleNamespace(check_embedding=check_embedding, check_sinkhorn=check_sinkhorn, emb_rows=emb_rows,
-                               bwd_rows=bwd_rows, roofline=roofline, embedding_work=embedding_work,
-                               peak_product=PEAK_F32_PRODUCT_FLOPS)
-    with tempfile.TemporaryDirectory() as linemod_tmp:
-        for name, count in zip(launches, linemod_chain(ck, dev, card, kc, linemod_tmp)):
+    # phases 8 and 10 keep their trees and outputs in chain_tmp, which phase 14 reads
+    with tempfile.TemporaryDirectory() as chain_tmp:
+        cli_tmp, kitti_tmp = os.path.join(chain_tmp, "3dmatch"), os.path.join(chain_tmp, "kitti")
+        # 8. the CLI chain: trainval -> test -> eval on a fixture tree
+        for name, count in zip(launches, cli_chain(ck, dev, mean_ms, cli_tmp)):
             launches[name] += count
 
-        # 10. the KITTI stage-5 experiment: trainval -> test -> eval, calibration
-        for name, count in zip(launches, kitti_chain(ck, dev, card, kc)):
-            launches[name] += count
+        # 9. the LineMod encoder experiment: trainval_encoder -> test, its trees
+        # and snapshots kept for phase 11
+        kc = types.SimpleNamespace(check_embedding=check_embedding, check_sinkhorn=check_sinkhorn, emb_rows=emb_rows,
+                                   bwd_rows=bwd_rows, roofline=roofline, embedding_work=embedding_work,
+                                   peak_product=PEAK_F32_PRODUCT_FLOPS)
+        with tempfile.TemporaryDirectory() as linemod_tmp:
+            for name, count in zip(launches, linemod_chain(ck, dev, card, kc, linemod_tmp)):
+                launches[name] += count
 
-        # 11. Cordi's DDPM on phase 9's encoder: train_cordi -> test --cordi_snapshot
-        for name, count in zip(launches, cordi_chain(ck, dev, card, linemod_tmp)):
-            launches[name] += count
+            # 10. the KITTI stage-5 experiment: trainval -> test -> eval, calibration
+            for name, count in zip(launches, kitti_chain(ck, dev, card, kc, kitti_tmp)):
+                launches[name] += count
 
-        # 12. data parallelism: the 3DMatch trainer under a 1-rank NCCL group against
-        # the plain path, 2 gloo ranks on the card, trainval_encoder --multihost
-        for name, count in zip(launches, data_parallel_chain(ck, dev, card, linemod_tmp)):
-            launches[name] += count
+            # 11. Cordi's DDPM on phase 9's encoder: train_cordi -> test --cordi_snapshot
+            for name, count in zip(launches, cordi_chain(ck, dev, card, linemod_tmp)):
+                launches[name] += count
 
-        # 13. the rest of the model surface: bf16 activations, the converter round
-        # trip, the mean / dustbin / dropout variant, the LineMod correspondence dump
-        for name, count in zip(launches, surface_chain(ck, dev, card, kc, linemod_tmp)):
+            # 12. data parallelism: the 3DMatch trainer under a 1-rank NCCL group against
+            # the plain path, 2 gloo ranks on the card, trainval_encoder --multihost
+            for name, count in zip(launches, data_parallel_chain(ck, dev, card, linemod_tmp)):
+                launches[name] += count
+
+            # 13. the rest of the model surface: bf16 activations, the converter round
+            # trip, the mean / dustbin / dropout variant, the LineMod correspondence dump
+            for name, count in zip(launches, surface_chain(ck, dev, card, kc, linemod_tmp)):
+                launches[name] += count
+
+        # 14. the scripts and the host C++: native against the card's pyramid ops,
+        # downsample_kitti, eval_dgr and the wrappers on phases 8 and 10's trees,
+        # and the overfit probe in two regimes
+        for name, count in zip(launches, scripts_chain(ck, dev, card, kc, cli_tmp, kitti_tmp)):
             launches[name] += count
     # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)

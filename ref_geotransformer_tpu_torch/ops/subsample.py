@@ -20,8 +20,13 @@ def _voxel_keys(points: torch.Tensor, masks: torch.Tensor, voxel_size: float) ->
     """Linearized int32 voxel id per point; invalid points sort last."""
     valid_points = torch.where(masks[:, None], points, float("inf"))
     min_corner = valid_points.min(dim=0).values
-    origin = torch.floor(min_corner / voxel_size) * voxel_size
-    coords = torch.floor((points - origin) / voxel_size).to(torch.int32)
+    # divide by a tensor on the points' device: CUDA turns division by a host
+    # scalar into a product with its reciprocal, whose rounding moves points
+    # that lie on a voxel face into the next voxel (the JAX package and the
+    # host C++ kernel divide)
+    voxel = torch.full((), voxel_size, dtype=points.dtype, device=points.device)
+    origin = torch.floor(min_corner / voxel) * voxel_size
+    coords = torch.floor((points - origin) / voxel).to(torch.int32)
     coords = torch.where(masks[:, None], coords, 0)
     max_c = coords.max(dim=0).values
     nx, ny = max_c[0] + 1, max_c[1] + 1

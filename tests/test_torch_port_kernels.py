@@ -541,3 +541,24 @@ def test_sinkhorn_kernel_matches_plain_at_linemod_shapes(linemod_path):
     valid = padded > -1e11
     assert float((got - want)[valid].abs().max()) <= 1e-3
     assert bool((got[~valid] < -1e11).all())
+
+
+@pytest.mark.cuda
+def test_grid_subsample_on_card_matches_native():
+    """The card's voxel grid against the host C++ kernel on a raw LiDAR scan
+    of a KITTI frame's size (120000 points over 40 m) at 0.3 m: the same
+    voxels in the same (z, y, x) order, centroids within 1e-5. A voxel index
+    computed with the reciprocal of the voxel size moves points on a voxel
+    face into the next voxel and shifts two centroids by ~1e-4."""
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5.fixture import _scan
+    from ref_geotransformer_tpu_torch.native import grid_subsample_native
+    from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
+
+    dev = _cuda()
+    scan = _scan(np.random.default_rng(14), 120000, 40.0, True)
+    scan[:, 2] -= 1.73
+    want, total = grid_subsample_native(scan, 0.3)
+    points = torch.from_numpy(scan).to(dev)
+    got, masks = grid_subsample(points, torch.ones(len(scan), dtype=torch.bool, device=dev), 0.3, len(scan))
+    assert int(masks.sum()) == total and bool(masks[:total].all())
+    assert float(np.abs(got[:total].cpu().numpy() - want).max()) <= 1e-5

@@ -15,6 +15,7 @@ from ref_geotransformer_tpu.models import GeoTransformer as JaxGeoTransformer
 from ref_geotransformer_tpu.models import init_model_variables
 from ref_geotransformer_tpu.utils.convert_checkpoint import convert_state_dict
 from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
+from ref_geotransformer_tpu_torch.utils.jax_init import jax_init_parameters
 from ref_geotransformer_tpu_torch.utils.weights import from_jax_variables, init_parameters, load_jax_variables
 from tests.torch_port_utils import ROOT, port_config, tiny4_config
 
@@ -87,11 +88,30 @@ def test_init_parameters_is_seeded(jax_variables):
     assert float(a["backbone.encoder1_1.KPConv.weights"].abs().max()) > 0
 
 
+def test_jax_init_parameters_draws_the_jax_weights(jax_variables):
+    """The numpy draw of the JAX package's initial weights for key 0 against
+    `init_model_variables(..., jax.random.key(0))`: every tensor within 1e-6
+    of its largest magnitude (the last bit: the jitted init rounds the
+    uniform's scale and shift once, as an FMA, and XLA's f32 erf_inv and
+    log1p round otherwise); a wrong key, path or count misses by the
+    weights' own size."""
+    cfg, variables = jax_variables
+    want = load_jax_variables(GeoTransformer(port_config(cfg)), variables).state_dict()
+    got = jax_init_parameters(GeoTransformer(port_config(cfg)), 0).state_dict()
+    assert set(got) == set(want)
+    for key, value in got.items():
+        scale = max(float(want[key].abs().max()), 1e-30)
+        assert float((value - want[key]).abs().max()) <= 1e-6 * scale, key
+    other = jax_init_parameters(GeoTransformer(port_config(cfg)), 1).state_dict()
+    assert not torch.equal(other["transformer.in_proj.weight"], got["transformer.in_proj.weight"])
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port leaves JAX, the JAX package and
     PIL unimported (the card machine has no PIL; the port reads PNGs
     itself). The walk reaches only packages with an __init__.py: it must
-    reach the trainers, the tester and the three experiments' modules."""
+    reach the trainers, the tester, the three experiments' modules, the
+    native kernels' bindings and the tools."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ref_geotransformer_tpu_torch as pkg\n"
@@ -110,7 +130,9 @@ def test_port_imports_no_jax():
         "        kitti + 'eval', kitti + 'fixture', 'models.cordi', lm + 'train_cordi', 'parallel.multihost',\n"
         "        'parallel.mesh', 'parallel.dp', 'utils.visualization', 'utils.convert_checkpoint',\n"
         "        'models.factory', 'models.correspondence', 'models.attention', 'models.embedding',\n"
-        "        'ops.vector_angle', 'ops.metrics', 'ops.se3', 'ops.neighbors', 'ops.partition')}\n"
+        "        'ops.vector_angle', 'ops.metrics', 'ops.se3', 'ops.neighbors', 'ops.partition', 'native',\n"
+        "        'tools.downsample_kitti', 'tools.overfit_probe', exp + 'eval_dgr', 'utils.jax_init',\n"
+        "        'utils.neighbor_tables')}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -12,6 +12,8 @@ import os
 import numpy as np
 import torch
 
+from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-5
 RTOL = 2e-5
@@ -41,33 +43,10 @@ def assert_close(ours, theirs, atol=ATOL, rtol=RTOL, name=""):
 
 
 def assert_tables_match(ours, theirs, q_points, s_points, name="", tie_tol=1e-6):
-    """Neighbor/patch tables (M, H), sentinel = len(s_points): column 0
-    (the nearest neighbor, which nearest_upsample reads) equal, and the rows
-    equal as sets. Where they differ, the difference must be a real tie:
-    the two column-0 indices at the same squared distance (float64, within
-    `tie_tol`; e.g. a voxel of two points has its centroid exactly between
-    them), and every element in only one of a row's sets within `tie_tol`
-    of the farthest kept neighbor of the row, so the two top-k selections
-    only ordered equal distances differently."""
-    ours, theirs = to_np(ours), to_np(theirs)
-    q = to_np(q_points).astype(np.float64)
-    s = to_np(s_points).astype(np.float64)
-    n = s.shape[0]
-    assert ours.shape == theirs.shape, f"{name}: shape {ours.shape} vs {theirs.shape}"
-    for i in np.where(ours[:, 0] != theirs[:, 0])[0]:
-        a, b = ours[i, 0], theirs[i, 0]
-        assert a < n and b < n, f"{name}: row {i} column 0 {a} vs {b}"
-        da, db = np.sum((q[i] - s[a]) ** 2), np.sum((q[i] - s[b]) ** 2)
-        assert abs(da - db) <= tie_tol, f"{name}: row {i} column 0 {a} vs {b}, d^2 {da:.9f} vs {db:.9f}"
-    rows = np.where((np.sort(ours, 1) != np.sort(theirs, 1)).any(1))[0]
-    for i in rows:
-        a, b = set(ours[i].tolist()) - {n}, set(theirs[i].tolist()) - {n}
-        d2 = {x: float(np.sum((q[i] - s[x]) ** 2)) for x in a | b}
-        edge = max(d2.values())
-        for x in a ^ b:
-            assert abs(d2[x] - edge) <= tie_tol, (
-                f"{name}: row {i} differs at {x} (d^2={d2[x]:.9f}), "
-                f"{edge - d2[x]:.3e} inside the row's farthest kept neighbor: not a tie")
+    """Neighbor/patch tables (M, H), sentinel = len(s_points): equal up to
+    ties within `tie_tol` (`utils/neighbor_tables.py::table_mismatches`)."""
+    _, bad, _ = table_mismatches(to_np(ours), to_np(theirs), to_np(q_points), to_np(s_points), tie_tol)
+    assert not bad, f"{name}: {len(bad)} rows differ beyond ties; {bad[0]}"
 
 
 def to_torch(tree, device="cpu"):
