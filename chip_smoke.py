@@ -21,8 +21,9 @@ Phases; any failure raises and the script exits non-zero:
      f32-accurate tensor-core rate; Sinkhorn's exps at the SFU's rate);
   4. the inference path (pyramid + forward, 3DMatch stage-4 at published
      widths, bf16 backbone, seeded random weights) at demo and at full
-     capacities: kernel launches of one forward, finite transform, ms/pair,
-     pairs/s, peak memory;
+     capacities: kernel launches of one forward (20 radius_search launches
+     in the pair's pyramids), finite transform, ms/pair, pairs/s, peak
+     memory;
   5. the inference path in f32 at demo capacities, kernels against the
      plain versions, same weights and inputs;
   6. one f32 train step at demo capacities, kernels against plain, same
@@ -150,7 +151,21 @@ Phases; any failure raises and the script exits non-zero:
      ms/step, peak memory, the trajectory written to chiprun_out/, and after
      each run the embedding kernels (forward and backward) on the trained
      model and the coarse nodes of its last pair, and Sinkhorn on the scores
-     of that pair's evaluation, against their plain versions.
+     of that pair's evaluation, against their plain versions;
+ 15. the radius-search kernel (csrc/radius_search.cu) against its plain
+     version on the searches the main paths give it, recorded as the
+     pyramids are built: the demo pair's 2 x 10 at demo and at full caps, the
+     KITTI pyramid (5 stages) of phase 14's raw scan downsampled on the card,
+     a LineMod fixture pair's 2 x 7, and seeded ragged clouds (M and N off
+     the kernel's tiles, invalid queries, duplicated supports, limits 1, 38
+     and 128, fewer valid supports than the row holds): no row beyond ties
+     (RADIUS_TIE), rows differing at ties counted, two launches
+     bit-identical, int32 with the sentinel N; the kernel's time beside its
+     bound and the plain version's for each full-caps level-0 search and
+     for the 20 searches of a pair's pyramids; build_registration_inputs
+     and the inference path per pair at demo and full caps, the plain
+     version and the kernel in turns (plain, kernel, kernel, plain), 20
+     radius_search launches a pair with the kernel.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -212,6 +227,15 @@ NATIVE_TIE = 1e-6
 PROBE_GATED = {"steps": 30, "scale": 0.06, "pairs": 4, "log_every": 5, "lr": 1e-4}
 PROBE_LONG = {"steps": 200, "scale": 0.25, "pairs": 2, "log_every": 20, "lr": None}
 WRAPPER_TIMEOUT_S = 300
+# phase 15: the radius-search kernel against its plain version. Both rank the
+# f32 form |q|^2 - 2 q.s + |s|^2, the dot product summed in other orders (FMAs
+# in the kernel, cuBLAS in the plain version), so a neighbor in only one row
+# must tie with the row's farthest within RADIUS_TIE of 1 + |q|^2 + |s|^2
+# (NATIVE_TIE's reasoning); the seeded ragged cloud (RAGGED_QUERIES x
+# RAGGED_SUPPORTS in a unit cube, its first RAGGED_DUPLICATES supports
+# repeated) takes the kernel's longest rows
+RADIUS_TIE = 1e-6
+RAGGED_QUERIES, RAGGED_SUPPORTS, RAGGED_DUPLICATES = 3001, 5003, 500
 # the keys each test dump must hold (tests/test_fixture_cli_e2e.py)
 REQUIRED_NPZ_KEYS = {
     "ref_points", "src_points", "ref_points_c", "src_points_c", "ref_feats_c", "src_feats_c",
@@ -326,6 +350,7 @@ def reset_counts(ck):
     ck.geometric_embedding.launches = 0
     ck.geometric_embedding_bwd.launches = 0
     ck.sinkhorn_log_norm.launches = 0
+    ck.radius_search.launches = 0
 
 
 def read_counts(ck):
@@ -1897,6 +1922,238 @@ def scripts_chain(ck, dev, card, kc, cli_tmp, kitti_tmp):
     return tuple(totals)
 
 
+@contextlib.contextmanager
+def searches_through(fn):
+    """`ops/neighbors.py::radius_search`, and so every pyramid built in the
+    block, calls fn in place of the kernel's wrapper."""
+    from ref_geotransformer_tpu_torch.ops import neighbors
+
+    original = neighbors.cuda_kernels
+    neighbors.cuda_kernels = types.SimpleNamespace(radius_search=fn)
+    try:
+        yield
+    finally:
+        neighbors.cuda_kernels = original
+
+
+def recorded_searches(ck, calls):
+    """The kernel's wrapper, each call's arguments appended to `calls`."""
+    def record(*args):
+        calls.append(args)
+        return ck.radius_search(*args)
+    return searches_through(record)
+
+
+def radius_work(q_masks, s_masks, limit):
+    """8 f32 operations per (valid query, valid support) pair (a 3-term dot
+    product and two adds); bytes: points and masks read once, the int32
+    table written once."""
+    m, n = q_masks.shape[0], s_masks.shape[0]
+    flops = 8.0 * float(q_masks.sum()) * float(s_masks.sum())
+    return flops, 13.0 * (m + n) + 4.0 * m * limit
+
+
+def slot_error(got, want, q, s, radius):
+    """Largest |d^2| difference slot by slot between two tables (float64
+    squared distances; an empty slot counts as r^2): 0 where they differ
+    only by the order of exact ties."""
+    import numpy as np
+
+    q64 = q.astype(np.float64)
+    s64 = np.concatenate([s.astype(np.float64), np.zeros((1, 3))])
+
+    def d2(table):
+        d = np.sum((q64[:, None, :] - s64[table]) ** 2, axis=-1)
+        return np.where(table == s.shape[0], radius * radius, d)
+
+    return float(np.abs(d2(got) - d2(want)).max())
+
+
+def radius_chain(ck, dev, card):
+    """Phase 15 on the card. Returns (the kernel's result row for the
+    `kernels` line, its launches in the pyramids built through
+    build_registration_inputs)."""
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.config.modelnet import make_cfg as linemod_cfg
+    from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
+    from ref_geotransformer_tpu_torch.data import PairLoader, build_pyramid, build_registration_inputs
+    from ref_geotransformer_tpu_torch.data.datasets.linemod import LMODataset
+    from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, to_device
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import config as k_config
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import fixture as k_fixture
+    from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import fixture as lm_fixture
+    from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
+    from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
+
+    phase_t0 = time.perf_counter()
+    errs = []
+
+    def compare(q, s, qm, sm, radius, limit, chunk=2048):
+        """The kernel against the plain version on one search: (rows that
+        differ at ties, slot error, mean neighbors of a valid query)."""
+        got = ck.radius_search(q, s, qm, sm, radius, limit, chunk)
+        again = ck.radius_search(q, s, qm, sm, radius, limit, chunk)
+        want = ck.radius_search_plain(q, s, qm, sm, radius, limit, chunk)
+        torch.cuda.synchronize()
+        m, n = q.shape[0], s.shape[0]
+        what = f"{m} x {n}, r {radius:g}, limit {limit}"
+        check(got.dtype == torch.int32 and tuple(got.shape) == (m, limit), f"radius_search {what}: {got.dtype} "
+                                                                          f"{tuple(got.shape)}")
+        check(torch.equal(got, again), f"radius_search {what}: two launches differ")
+        check(bool(((got >= 0) & (got <= n)).all()), f"radius_search {what}: an index outside 0..N")
+        check(bool((got[~qm] == n).all()), f"radius_search {what}: an invalid query's row holds a neighbor")
+        g, w, qn, sn = (x.cpu().numpy() for x in (got, want, q, s))
+        differ, bad, _ = table_mismatches(g, w, qn, sn, RADIUS_TIE, scaled=True)
+        check(not bad, f"radius_search {what}: {len(bad)} rows differ from the plain version beyond ties: {bad[:3]}")
+        err = slot_error(g, w, qn, sn, radius)
+        errs.append(err)
+        valid = qm.cpu().numpy()
+        filled = float((g[valid] < n).sum(1).mean()) if valid.any() else 0.0
+        return differ, err, filled
+
+    def compare_all(label, calls):
+        rows = [compare(*call) for call in calls]
+        print(f"[radius] {card}: {label}: {len(calls)} searches ("
+              + ", ".join(f"{c[0].shape[0]}x{c[1].shape[0]}/{c[5]}" for c in calls) + f"); rows differing at ties "
+              f"{', '.join(str(r[0]) for r in rows)}, none beyond; slot error {max(r[1] for r in rows):.3e}; "
+              f"neighbors a valid query {', '.join('%.1f' % r[2] for r in rows)}; two launches bit-identical")
+
+    # (a.1) the 3DMatch demo pair's pyramids at demo and full caps, both clouds
+    pyramids = {}
+    for demo_caps in (True, False):
+        regime = "demo" if demo_caps else "full"
+        cfg = make_cfg(demo=demo_caps)
+        bb, caps = cfg.backbone, cfg.capacities
+        pair = demo.load_pair(cfg, dev)
+        calls = []
+        with recorded_searches(ck, calls):
+            for cloud in ("ref", "src"):
+                build_pyramid(pair[f"{cloud}_points"], pair[f"{cloud}_masks"], bb.num_stages, bb.init_voxel_size,
+                              bb.init_radius, caps.neighbor_limits, caps.points, caps.search_chunk)
+        check(len(calls) == 20, f"3DMatch {regime}: {len(calls)} searches in a pair's pyramids, expected 20")
+        compare_all(f"3DMatch {regime} caps {caps.points}, limits {caps.neighbor_limits}", calls)
+        pyramids[regime] = (cfg, pair, calls)
+
+    # (a.2) the KITTI pyramid of phase 14's raw scan, downsampled at 0.3 m on the card
+    kcfg = k_config.make_cfg()
+    kbb, kcaps = kcfg.backbone, kcfg.capacities
+    scan = k_fixture._scan(np.random.default_rng(14), RAW_SCAN_POINTS, KITTI_RADIUS, True)
+    scan[:, 2] -= SENSOR_HEIGHT
+    points = torch.from_numpy(scan).to(dev)
+    down, down_m = grid_subsample(points, torch.ones(len(scan), dtype=torch.bool, device=dev), kbb.init_voxel_size,
+                                  kcaps.points[0])
+    calls = []
+    with recorded_searches(ck, calls):
+        build_pyramid(down, down_m, kbb.num_stages, kbb.init_voxel_size, kbb.init_radius, kcaps.neighbor_limits,
+                      kcaps.points, kcaps.search_chunk)
+    compare_all(f"KITTI scan of {RAW_SCAN_POINTS} points, {int(down_m.sum())} voxels, caps {kcaps.points}, limits "
+                f"{kcaps.neighbor_limits}", calls)
+    del points, down, down_m, calls
+
+    # (a.3) a LineMod pair's pyramids (fixture frame, published caps)
+    with tempfile.TemporaryDirectory() as lm_tmp:
+        lm_fixture.make_linemod_tree(os.path.join(lm_tmp, "linemod"), n_train=1, n_test=1)
+        lcfg = linemod_cfg()
+        dataset = LMODataset(lm_tmp, data_augmentation=False, points_limit=1000, mode="test", seed=lcfg.seed)
+        pair, _ = next(PairLoader(dataset, lcfg).iter_single())
+        calls = []
+        with recorded_searches(ck, calls):
+            ensure_pyramids(lcfg, to_device(pair, dev))
+    compare_all(f"LineMod pair, caps {lcfg.capacities.points}, limits {lcfg.capacities.neighbor_limits}", calls)
+
+    # (a.4) seeded ragged clouds: M and N off the tiles, invalid queries,
+    # duplicated supports (exact ties), the shortest and longest rows, and
+    # fewer valid supports than the row holds
+    rng = np.random.default_rng(15)
+    s = rng.uniform(0.0, 1.0, (RAGGED_SUPPORTS, 3)).astype(np.float32)
+    s[RAGGED_DUPLICATES: 2 * RAGGED_DUPLICATES] = s[:RAGGED_DUPLICATES]
+    q = s[:RAGGED_QUERIES]
+    qm = rng.uniform(size=RAGGED_QUERIES) < 0.9
+    sm = rng.uniform(size=RAGGED_SUPPORTS) < 0.9
+    few = rng.uniform(size=200) < 0.3
+    q, s, qm, sm, few = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (q, s, qm, sm, few))
+    ragged = [(q, s, qm, sm, 0.25, 128), (q, s, qm, sm, 0.25, 1), (q, s, qm, sm, 0.1, 38),
+              (q[:1000], s[:200], qm[:1000], few, 2.0, 128)]
+    compare_all(f"seeded ragged clouds ({RAGGED_DUPLICATES} duplicated supports)", ragged)
+    got = ck.radius_search(*ragged[-1])
+    check(bool(((got < 200).sum(1)[qm[:1000]] == int(few.sum())).all()),
+          "radius_search: a valid query does not hold every valid support of the sparse cloud")
+
+    # (b) times: each full-caps level-0 search, then the 20 of a pair's pyramids
+    cfg, pair, calls = pyramids["full"]
+    rows = []
+    for call, label in zip(calls[:3], ("neighbors[0]", "subsampling[0]", "upsampling[0]")):
+        ms = cuda_ms(lambda: ck.radius_search(*call))
+        plain_ms = cuda_ms(lambda: ck.radius_search_plain(*call), iters=3, warmup=1)
+        bound_ms, bound_by = roofline(*radius_work(call[2], call[3], call[5]), PEAK_F32_FLOPS)
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[radius:time] {card}: full caps {label} ({call[0].shape[0]} x {call[1].shape[0]}, "
+              f"{int(call[2].sum())} x {int(call[3].sum())} valid, limit {call[5]}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+              f"of it")
+    for regime in ("demo", "full"):
+        cfg, pair, calls = pyramids[regime]
+        ms = cuda_ms(lambda: [ck.radius_search(*c) for c in calls])
+        plain_ms = cuda_ms(lambda: [ck.radius_search_plain(*c) for c in calls], iters=3, warmup=1)
+        bound_ms = sum(roofline(*radius_work(c[2], c[3], c[5]), PEAK_F32_FLOPS)[0] for c in calls)
+        print(f"[radius:time] {card}: the 20 searches of a pair's pyramids at {regime} caps: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% "
+              f"of it")
+
+    # (b, c) build_registration_inputs and the inference path per pair, the
+    # kernel against the plain version in turns (plain, kernel, kernel,
+    # plain); each kernel turn launches it 20 times a pair
+    def timed(step, kernel):
+        """ms per call over TIMED_ITERS calls after a warm-up, with the kernel
+        or with the plain version in its place, and the kernel's launches in
+        those calls."""
+        def searches():
+            return contextlib.nullcontext() if kernel else searches_through(ck.radius_search_plain)
+
+        with searches():
+            step()
+            torch.cuda.synchronize()
+        reset_counts(ck)
+        with searches():
+            t0 = time.perf_counter()
+            for _ in range(TIMED_ITERS):
+                step()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / TIMED_ITERS
+        return ms, ck.radius_search.launches
+
+    launches = 0
+    for regime in ("demo", "full"):
+        cfg, pair, _ = pyramids[regime]
+        bb, caps = cfg.backbone, cfg.capacities
+        model = demo.build_model(cfg, dev, seed=0)
+        steps = {"build_registration_inputs": lambda: build_registration_inputs(
+            pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"], bb.num_stages,
+            bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points, search_chunk=caps.search_chunk),
+            "inference": lambda: demo.register(model, cfg, pair)}
+        for name, step in steps.items():
+            turns = []
+            for kernel in (False, True, True, False):
+                ms, count = timed(step, kernel)
+                check(count == (20 * TIMED_ITERS if kernel else 0),
+                      f"{name} at {regime} caps: {count} radius_search launches over {TIMED_ITERS} pairs")
+                launches += count
+                turns.append(f"{'kernel' if kernel else 'plain'} {ms:.2f}")
+            print(f"[radius:turns] {card}: {name} at {regime} caps, ms/pair in turns: {', '.join(turns)} (20 "
+                  f"radius_search launches a pair with the kernel)")
+        del model
+        torch.cuda.empty_cache()
+    print(f"[radius] {card}: phase 15 took {time.perf_counter() - phase_t0:.1f} s")
+    result = dict(rows[0], max_abs_err=max(errs), library_ms=None)
+    return result, launches
+
+
 def main():
     import torch
 
@@ -1939,7 +2196,7 @@ def main():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s ({build.LIBRARY})")
     with open(build.BUILD_LOG) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print("[build] " + line.strip())
 
     # 3. kernels against their plain versions, at main-path shapes
@@ -2071,7 +2328,9 @@ def main():
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of the roofline{core}")
 
     # 4. the inference path at demo and full capacities
-    launches = {"geo_embedding": 0, "geo_embedding_bwd": 0, "sinkhorn": 0}
+    # phases 7-14 add the model's three kernels (read_counts); phases 4 and 15
+    # count the pyramid's radius_search
+    launches = {"geo_embedding": 0, "geo_embedding_bwd": 0, "sinkhorn": 0, "radius_search": 0}
     for demo_caps in (True, False):
         regime = "demo" if demo_caps else "full"
         cfg = make_cfg(demo=demo_caps)
@@ -2083,12 +2342,15 @@ def main():
         out = demo.register(model, cfg, pair)
         torch.cuda.synchronize()
         counts = read_counts(ck)
+        searches = ck.radius_search.launches
         print(f"[path:{regime}] kernel launches in one forward: geo_embedding {counts[0]}, "
-              f"geo_embedding_bwd {counts[1]}, sinkhorn {counts[2]}")
+              f"geo_embedding_bwd {counts[1]}, sinkhorn {counts[2]}, radius_search {searches} (the pyramids)")
         check(counts == (2, 0, 1), f"{regime}: expected 2 geo_embedding, 0 backward and 1 sinkhorn launches, "
                                    f"got {counts}")
+        check(searches == 20, f"{regime}: expected 20 radius_search launches (10 a cloud), got {searches}")
         for name, count in zip(launches, counts):
             launches[name] += count
+        launches["radius_search"] += searches
         est = out["estimated_transform"]
         check(tuple(est.shape) == (4, 4) and bool(torch.isfinite(est).all()), f"{regime}: bad transform {est}")
         p = cfg.coarse_matching.num_correspondences
@@ -2249,6 +2511,11 @@ def main():
         # and the overfit probe in two regimes
         for name, count in zip(launches, scripts_chain(ck, dev, card, kc, cli_tmp, kitti_tmp)):
             launches[name] += count
+
+    # 15. the radius-search kernel against its plain version on every pyramid's
+    # searches, its times, and the pyramid and inference per pair in turns
+    results["radius_search"], count = radius_chain(ck, dev, card)
+    launches["radius_search"] += count
     # each kernel's largest error over every shape it was held at, phases 9 and 10 included
     results["geo_embedding"]["max_abs_err"] = max(r[1] for r in emb_rows)
     results["geo_embedding_bwd"]["max_abs_err"] = max(r[1] for r in bwd_rows)
@@ -2257,7 +2524,8 @@ def main():
 
     sources = {"geo_embedding": ("geo_embedding.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:197"),
                "geo_embedding_bwd": ("geo_embedding_bwd.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:318"),
-               "sinkhorn": ("sinkhorn.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:52")}
+               "sinkhorn": ("sinkhorn.cu", "ref_geotransformer_tpu/models/pallas_kernels.py:52"),
+               "radius_search": ("radius_search.cu", "ref_geotransformer_tpu/ops/neighbors.py:72")}
     kernels = [{"name": name, "route": "cuda", "source": f"ref_geotransformer_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name], **results[name]}
                for name, (src, replaces) in sources.items()]

@@ -8,7 +8,10 @@ Counterpart of `ref_geotransformer_tpu/models/pallas_kernels.py`:
   `_geo_embedding_bwd`; `GeometricEmbeddingFunction` joins the two, as
   `make_geometric_embedding_vjp` does;
 * `sinkhorn_log_norm` (kernel `csrc/sinkhorn.cu`) replaces
-  `sinkhorn_log_norm_pallas`.
+  `sinkhorn_log_norm_pallas`;
+* `radius_search` (kernel `csrc/radius_search.cu`) replaces the XLA
+  selection `lax.approx_min_k` of `ref_geotransformer_tpu/ops/neighbors.py::
+  radius_search_brute`, the pyramid's neighbor search.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, or raises if the kernel cannot
@@ -20,9 +23,11 @@ from __future__ import annotations
 
 import torch
 
+from ref_geotransformer_tpu_torch.ops import selection
 from ref_geotransformer_tpu_torch.utils import build
 
 SINKHORN_MAX_DIM = 144  # largest M1 and N1 the Sinkhorn kernel takes
+RADIUS_SEARCH_MAX_LIMIT = 128  # longest neighbor row the radius-search kernel takes
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -280,3 +285,71 @@ def sinkhorn_log_norm(scores, log_mu, log_nu, num_iterations):
 
 
 sinkhorn_log_norm.launches = 0
+
+
+def radius_search_plain(q_points, s_points, q_masks, s_masks, radius, limit, chunk=2048):
+    """Plain PyTorch radius search: for each chunk of `chunk` queries, the
+    masked squared distances to every support (`pairwise_distance`'s
+    |q|^2 - 2 q.s + |s|^2, clamped at 0), the `limit` nearest by an exact
+    top-k, kept if inside `radius`. Rows are distance-sorted; torch.topk
+    promises no order among equal distances.
+
+    Args: q_points (M, 3) and q_masks (M,) bool, the queries; s_points
+    (N, 3) and s_masks (N,) bool, the supports; 1 <= limit <= N.
+    Returns (M, limit) int32 indices into s_points, sentinel N in empty
+    slots and in every slot of an invalid query.
+    """
+    n = s_points.shape[0]
+    r2 = radius * radius
+    out = []
+    for start, d, idx in selection.chunked_min_k(q_points, s_points, s_masks, limit, chunk):
+        valid = (d < r2) & q_masks[start : start + chunk, None]
+        out.append(torch.where(valid, idx.to(torch.int32), n))
+    return torch.cat(out, dim=0)
+
+
+def radius_search(q_points, s_points, q_masks, s_masks, radius, limit, chunk=2048):
+    """The `limit` nearest valid supports of each valid query inside
+    `radius`; arguments and result as in `radius_search_plain` (`chunk`
+    bounds the plain version's distance blocks only). On a CUDA tensor it
+    runs the kernel, 1 <= limit <= RADIUS_SEARCH_MAX_LIMIT: distances fused
+    with a bounded top-k per query, no distance matrix in device memory,
+    each row in (d^2, index) order, ties to the lower index, so two launches
+    give the same bits."""
+    m, n = q_points.shape[0], s_points.shape[0]
+    _require(1 <= limit <= n, f"radius_search: limit {limit} outside 1..N = {n}")
+    if q_points.device.type == "cpu":
+        return radius_search_plain(q_points, s_points, q_masks, s_masks, radius, limit, chunk)
+    _require(q_points.is_cuda, f"radius_search: unsupported device {q_points.device}")
+    _require(limit <= RADIUS_SEARCH_MAX_LIMIT,
+             f"radius_search: limit {limit} beyond the kernel's {RADIUS_SEARCH_MAX_LIMIT}")
+    _require(m >= 1, "radius_search: no queries")
+    _require(tuple(q_points.shape) == (m, 3) and tuple(s_points.shape) == (n, 3)
+             and tuple(q_masks.shape) == (m,) and tuple(s_masks.shape) == (n,),
+             "radius_search: points must be (M, 3) and (N, 3), masks (M,) and (N,)")
+    for key, t, dtype in (("q_points", q_points, torch.float32), ("s_points", s_points, torch.float32),
+                          ("q_masks", q_masks, torch.bool), ("s_masks", s_masks, torch.bool)):
+        _require(t.device == q_points.device, f"radius_search: {key} on {t.device}, expected {q_points.device}")
+        _require(t.dtype == dtype, f"radius_search: {key} is {t.dtype}, expected {dtype}")
+        _require(t.is_contiguous(), f"radius_search: {key} is not contiguous")
+    lib = build.load_library()
+    out = torch.empty((m, limit), dtype=torch.int32, device=q_points.device)
+    slices = lib.gt_radius_search_slices(m, n, limit)
+    build.check(max(-slices, 0), "gt_radius_search_slices")
+    part_d = part_j = part_n = None
+    if slices > 1:
+        part_d = torch.empty((slices, m, limit), dtype=torch.float32, device=q_points.device)
+        part_j = torch.empty((slices, m, limit), dtype=torch.int32, device=q_points.device)
+        part_n = torch.empty((slices, m), dtype=torch.int32, device=q_points.device)
+    stream = torch.cuda.current_stream(q_points.device).cuda_stream
+    err = lib.gt_radius_search(
+        q_points.data_ptr(), s_points.data_ptr(), q_masks.data_ptr(), s_masks.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (part_d, part_j, part_n)), m, n, limit,
+        float(radius) * float(radius), slices, stream,
+    )
+    build.check(err, "gt_radius_search")
+    radius_search.launches += 1
+    return out
+
+
+radius_search.launches = 0

@@ -1,40 +1,26 @@
 """Fixed-width radius and kNN neighbor search.
 
 Counterpart of `ref_geotransformer_tpu/ops/neighbors.py`. `radius_search`:
-masked squared distances for a chunk of queries, then the `limit` nearest
-supports by an exact top-k, kept if inside `radius`; its "approx" method
-(the JAX default, approximate selection on a TPU) selects exactly here, as
-"brute" does, and "bucket" gathers candidates from a grid of radius-sized
-cells (`radius_search_bucketed`). Rows come out distance-sorted (nearest
-first), with sentinel index N in empty slots. `knn_search` keeps the k
-nearest valid supports whatever their distance. `topk_neighbor_distances`
-is the counterpart of `_chunked_topk_neighbors`: the squared distances
-themselves, which neighbor-limit calibration counts against r^2.
+for its methods "approx" (the JAX default, approximate selection on a TPU)
+and "brute", the `limit` nearest valid supports inside `radius`, exactly,
+through `cuda_kernels.radius_search` (the kernel `csrc/radius_search.cu` on
+a CUDA tensor, masked distances and a chunked exact top-k on a CPU tensor);
+its "bucket" method gathers candidates from a grid of radius-sized cells
+(`radius_search_bucketed`). Rows come out distance-sorted (nearest first),
+with sentinel index N in empty slots. `knn_search` keeps the k nearest
+valid supports whatever their distance. `topk_neighbor_distances` is the
+counterpart of `_chunked_topk_neighbors`: the squared distances themselves,
+which neighbor-limit calibration counts against r^2.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ref_geotransformer_tpu_torch.models import cuda_kernels
 from ref_geotransformer_tpu_torch.ops import selection
-from ref_geotransformer_tpu_torch.ops.pairwise import pairwise_distance
-
-_FILL = 1e12
-
-
-def _chunked_min_k(
-    q_points: torch.Tensor, s_points: torch.Tensor, s_masks: torch.Tensor, k: int, chunk: int
-) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
-    """(start, sq_dists, indices) per chunk of queries: the k nearest
-    supports of each, ascending, invalid supports pushed to _FILL."""
-    s_invalid = ~s_masks
-    for start in range(0, q_points.shape[0], chunk):
-        sq = pairwise_distance(q_points[start : start + chunk], s_points)
-        sq = torch.where(s_invalid[None, :], _FILL, sq)
-        d, idx = selection.min_k(sq, k)
-        yield start, d, idx
 
 
 def topk_neighbor_distances(
@@ -42,7 +28,7 @@ def topk_neighbor_distances(
 ) -> torch.Tensor:
     """(M, k) squared distances from each query to its k nearest valid
     supports, ascending; 1e12 where fewer than k supports are valid."""
-    return torch.cat([d for _, d, _ in _chunked_min_k(q_points, s_points, s_masks, k, chunk)], dim=0)
+    return torch.cat([d for _, d, _ in selection.chunked_min_k(q_points, s_points, s_masks, k, chunk)], dim=0)
 
 
 def radius_search_bucketed(
@@ -98,7 +84,7 @@ def radius_search_bucketed(
         cand_ok = (keys_sorted[cand] == nkeys[:, None]).reshape(q.shape[0], -1)
         cand = cand.reshape(q.shape[0], -1)
         sq = torch.sum((q[:, None, :] - s_sorted[cand]) ** 2, dim=-1)
-        top_sq, pos = selection.min_k(torch.where(cand_ok, sq, _FILL), limit)
+        top_sq, pos = selection.min_k(torch.where(cand_ok, sq, selection.FILL), limit)
         idx = order[torch.gather(cand, 1, pos)].to(torch.int32)
         out.append(torch.where(top_sq < radius * radius, idx, n))
     return torch.where(q_masks[:, None], torch.cat(out, dim=0), n)
@@ -122,7 +108,9 @@ def radius_search(
         s_points: (N, 3) padded supports; s_masks (N,) validity.
         radius: search radius.
         limit: static number of neighbor slots.
-        chunk: query rows per step (bounds the (chunk, N) distance block).
+        chunk: query rows per step of the plain version and of "bucket"
+            (bounds their (chunk, N) distance block); the kernel keeps no
+            such block and does not read it.
         method: "approx" or "brute" (both exact here), or "bucket"
             (`radius_search_bucketed`).
     """
@@ -130,13 +118,7 @@ def radius_search(
         return radius_search_bucketed(q_points, s_points, q_masks, s_masks, radius, limit, chunk)
     if method not in ("approx", "brute"):
         raise ValueError(f"unknown radius_search method {method!r}")
-    n = s_points.shape[0]
-    r2 = radius * radius
-    out = []
-    for start, d, idx in _chunked_min_k(q_points, s_points, s_masks, limit, chunk):
-        valid = (d < r2) & q_masks[start : start + chunk, None]
-        out.append(torch.where(valid, idx.to(torch.int32), n))
-    return torch.cat(out, dim=0)
+    return cuda_kernels.radius_search(q_points, s_points, q_masks, s_masks, radius, limit, chunk)
 
 
 def knn_search(
@@ -152,8 +134,8 @@ def knn_search(
     invalid, and (M, k) squared distances (1e12 where no valid support)."""
     n = s_points.shape[0]
     dists, indices = [], []
-    for start, d, idx in _chunked_min_k(q_points, s_points, s_masks, k, chunk):
-        valid = (d < _FILL) & q_masks[start : start + chunk, None]
+    for start, d, idx in selection.chunked_min_k(q_points, s_points, s_masks, k, chunk):
+        valid = (d < selection.FILL) & q_masks[start : start + chunk, None]
         dists.append(d)
         indices.append(torch.where(valid, idx.to(torch.int32), n))
     return torch.cat(indices, dim=0), torch.cat(dists, dim=0)

@@ -18,7 +18,7 @@ import subprocess
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("geo_embedding.cu", "geo_embedding_bwd.cu", "sinkhorn.cu")
+SOURCES = ("geo_embedding.cu", "geo_embedding_bwd.cu", "sinkhorn.cu", "radius_search.cu")
 HEADERS = ("tf32_mma.cuh",)
 LIBRARY = os.path.join(BUILD_DIR, "libgt_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
@@ -32,6 +32,8 @@ _SIGNATURES = {
     "gt_geo_embedding_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "gt_geo_embedding_bwd_chunks": [],
     "gt_sinkhorn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gt_radius_search": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "gt_radius_search_slices": [_I, _I, _I],
 }
 
 

@@ -1,7 +1,7 @@
 """The port's kernel modules: the plain PyTorch versions against the JAX
 package (its XLA / lax.scan paths and its Pallas kernels in interpret mode)
 on the CPU, and the CUDA kernels (the embedding forward and backward,
-Sinkhorn) against the plain versions on a card (marked `cuda`: they skip
+Sinkhorn, the radius search) against the plain versions on a card (marked `cuda`: they skip
 where CUDA is absent). The embedding backward's CPU parity tests are in
 tests/test_torch_port_train.py. JAX is imported inside the
 CPU tests only, so the card tests also run where JAX is not installed:
@@ -271,7 +271,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert after == before
 
 
-@pytest.mark.parametrize("wrapper", ["geometric_embedding", "geometric_embedding_bwd", "sinkhorn_log_norm"])
+@pytest.mark.parametrize("wrapper", ["geometric_embedding", "geometric_embedding_bwd", "sinkhorn_log_norm",
+                                     "radius_search"])
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back(wrapper):
     """Only a CPU tensor takes the plain version: any other device launches
     the kernel or raises (here a meta tensor, which no kernel takes)."""
@@ -283,6 +284,9 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back(wrapper):
         args = (torch.zeros(32, 3, device=meta), torch.zeros(32, 3, 3, device=meta), torch.zeros(c // 2, device=meta),
                 torch.zeros(c, c, device=meta), torch.zeros(c, device=meta), torch.zeros(32, 32, c, device=meta),
                 0.2, 1.0)
+    elif wrapper == "radius_search":
+        args = (torch.zeros(32, 3, device=meta), torch.zeros(40, 3, device=meta),
+                torch.ones(32, dtype=torch.bool, device=meta), torch.ones(40, dtype=torch.bool, device=meta), 0.1, 8)
     else:
         c = 8
         args = (torch.zeros(32, 3, device=meta), torch.zeros(32, 3, 3, device=meta), torch.zeros(c // 2, device=meta),
@@ -562,3 +566,85 @@ def test_grid_subsample_on_card_matches_native():
     got, masks = grid_subsample(points, torch.ones(len(scan), dtype=torch.bool, device=dev), 0.3, len(scan))
     assert int(masks.sum()) == total and bool(masks[:total].all())
     assert float(np.abs(got[:total].cpu().numpy() - want).max()) <= 1e-5
+
+
+# the radius search: the kernel and the plain version rank the same f32 form
+# |q|^2 - 2 q.s + |s|^2 with the dot product summed in other orders (FMAs in
+# the kernel, cuBLAS in the plain version), so their tables may differ where
+# two squared distances lie within rounding of each other, which grows with
+# the squared norms: a neighbor in only one row must tie with the row's
+# farthest within RADIUS_TIE * (1 + |q|^2 + |s|^2)
+RADIUS_TIE = 1e-6
+
+
+def _radius_inputs(dev, m, n, seed, q_valid=0.9, s_valid=0.9, duplicates=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(0.0, scale, (n, 3)).astype(np.float32)
+    s[duplicates : 2 * duplicates] = s[:duplicates]
+    q = s[:m].copy() if m <= n else rng.uniform(0.0, scale, (m, 3)).astype(np.float32)
+    qm = rng.uniform(size=m) < q_valid
+    sm = rng.uniform(size=n) < s_valid
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, s, qm, sm))
+
+
+def _check_radius_kernel(q, s, qm, sm, radius, limit):
+    """The kernel against the plain version up to ties, two launches bit-identical, one count per call."""
+    from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
+
+    launches = cuda_kernels.radius_search.launches
+    got = cuda_kernels.radius_search(q, s, qm, sm, radius, limit)
+    again = cuda_kernels.radius_search(q, s, qm, sm, radius, limit)
+    torch.cuda.synchronize()
+    assert cuda_kernels.radius_search.launches == launches + 2
+    want = cuda_kernels.radius_search_plain(q, s, qm, sm, radius, limit)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (q.shape[0], limit)
+    assert torch.equal(got, again), "two launches differ"
+    n = s.shape[0]
+    assert bool(((got >= 0) & (got <= n)).all())
+    assert bool((got[~qm] == n).all()), "an invalid query's row holds a neighbor"
+    _, bad, _ = table_mismatches(got.cpu().numpy(), want.cpu().numpy(), q.cpu().numpy(), s.cpu().numpy(),
+                                 RADIUS_TIE, scaled=True)
+    assert not bad, f"{len(bad)} rows differ beyond ties; {bad[0]}"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,limit,radius", [(1, 1, 1, 0.5), (300, 700, 16, 0.15), (2049, 4097, 38, 0.08),
+                                              (1000, 1500, 64, 0.2), (512, 512, 128, 0.4)])
+def test_radius_search_kernel_matches_plain_on_card(m, n, limit, radius):
+    """Random clouds: one point; ragged M and N (not multiples of the
+    kernel's 128 queries and 512-support tiles); several support slices and
+    the merge (2049 x 4097); each of the kernel's list sizes (16, 40, 64,
+    128), the longest mostly full."""
+    dev = _cuda()
+    _check_radius_kernel(*_radius_inputs(dev, m, n, seed=m + n), radius, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all queries invalid", "no valid support", "duplicated points"])
+def test_radius_search_kernel_edges_on_card(case):
+    dev = _cuda()
+    kwargs = {"all queries invalid": {"q_valid": 0.0}, "no valid support": {"s_valid": 0.0},
+              "duplicated points": {"duplicates": 700}}[case]
+    q, s, qm, sm = _radius_inputs(dev, 3000, 3000, seed=7, **kwargs)
+    got = _check_radius_kernel(q, s, qm, sm, 0.1, 38)
+    n = s.shape[0]
+    if case != "duplicated points":
+        assert bool((got == n).all())
+    else:
+        # a duplicate's row starts with the lower index of its pair: (d^2, j) order
+        rows = torch.arange(700, 1400, device=dev)
+        valid = qm[rows] & sm[rows - 700] & sm[rows]
+        assert bool((got[rows[valid], 0] == rows[valid] - 700).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [0, cuda_kernels.RADIUS_SEARCH_MAX_LIMIT + 1])
+def test_radius_search_kernel_raises_beyond_its_limit(limit):
+    """limit 0 or 129 on a CUDA tensor raises and runs nothing, not the plain version."""
+    dev = _cuda()
+    q, s, qm, sm = _radius_inputs(dev, 200, 300, seed=1)
+    launches = cuda_kernels.radius_search.launches
+    with pytest.raises(ValueError, match="radius_search: limit"):
+        cuda_kernels.radius_search(q, s, qm, sm, 0.2, limit)
+    assert cuda_kernels.radius_search.launches == launches
