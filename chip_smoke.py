@@ -21,9 +21,9 @@ Phases; any failure raises and the script exits non-zero:
      f32-accurate tensor-core rate; Sinkhorn's exps at the SFU's rate);
   4. the inference path (pyramid + forward, 3DMatch stage-4 at published
      widths, bf16 backbone, seeded random weights) at demo and at full
-     capacities: kernel launches of one forward (20 radius_search launches
-     in the pair's pyramids), finite transform, ms/pair, pairs/s, peak
-     memory;
+     capacities: kernel launches of one forward (one radius-search launch
+     for the 20 searches of the pair's pyramids), finite transform, ms/pair,
+     pairs/s, peak memory;
   5. the inference path in f32 at demo capacities, kernels against the
      plain versions, same weights and inputs;
   6. one f32 train step at demo capacities, kernels against plain, same
@@ -152,20 +152,24 @@ Phases; any failure raises and the script exits non-zero:
      each run the embedding kernels (forward and backward) on the trained
      model and the coarse nodes of its last pair, and Sinkhorn on the scores
      of that pair's evaluation, against their plain versions;
- 15. the radius-search kernel (csrc/radius_search.cu) against its plain
-     version on the searches the main paths give it, recorded as the
-     pyramids are built: the demo pair's 2 x 10 at demo and at full caps, the
-     KITTI pyramid (5 stages) of phase 14's raw scan downsampled on the card,
-     a LineMod fixture pair's 2 x 7, and seeded ragged clouds (M and N off
-     the kernel's tiles, invalid queries, duplicated supports, limits 1, 38
-     and 128, fewer valid supports than the row holds): no row beyond ties
-     (RADIUS_TIE), rows differing at ties counted, two launches
-     bit-identical, int32 with the sentinel N; the kernel's time beside its
-     bound and the plain version's for each full-caps level-0 search and
-     for the 20 searches of a pair's pyramids; build_registration_inputs
-     and the inference path per pair at demo and full caps, the plain
-     version and the kernel in turns (plain, kernel, kernel, plain), 20
-     radius_search launches a pair with the kernel.
+ 15. the radius-search kernel (csrc/radius_search.cu): its build at limits
+     1, 38 and 128 (registers, local memory, which must be none, shared
+     memory, blocks an SM); then the grouped search against its plain
+     version on the groups the main paths give it, recorded as the pyramids
+     are built: the demo pair's one group of 2 x 10 at demo and at full caps,
+     the KITTI pyramid (5 stages) of phase 14's raw scan downsampled on the
+     card, a LineMod fixture pair's 2 x 7, a probe (i) pair's 2 x 10 (caps
+     scaled by 0.06), and seeded ragged clouds (M and N off the kernel's
+     tiles, invalid queries, duplicated supports, limits 1 to 128, fewer
+     valid supports than the row holds): no row beyond ties (RADIUS_TIE),
+     rows differing at ties counted, two launches bit-identical, each search
+     as it is alone, int32 with the sentinel N, the slices of each search;
+     the kernel's time beside its bound and the plain version's for each
+     full-caps level-0 search alone and for the 20 searches of a pair's
+     pyramids in one launch; build_registration_inputs and the inference
+     path per pair at demo and full caps, and probe (i)'s pyramids, the
+     plain version and the kernel in turns (plain, kernel, kernel, plain),
+     one radius-search launch of 20 searches a pair with the kernel.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -350,7 +354,8 @@ def reset_counts(ck):
     ck.geometric_embedding.launches = 0
     ck.geometric_embedding_bwd.launches = 0
     ck.sinkhorn_log_norm.launches = 0
-    ck.radius_search.launches = 0
+    ck.radius_search_group.launches = 0
+    ck.radius_search_group.searches = 0
 
 
 def read_counts(ck):
@@ -1923,24 +1928,34 @@ def scripts_chain(ck, dev, card, kc, cli_tmp, kitti_tmp):
 
 
 @contextlib.contextmanager
-def searches_through(fn):
-    """`ops/neighbors.py::radius_search`, and so every pyramid built in the
-    block, calls fn in place of the kernel's wrapper."""
+def searches_through(group_fn):
+    """`ops/neighbors.py::radius_search_group`, and so every pyramid built in
+    the block, calls group_fn(searches, chunk) in place of the kernel's
+    grouped wrapper."""
     from ref_geotransformer_tpu_torch.ops import neighbors
 
     original = neighbors.cuda_kernels
-    neighbors.cuda_kernels = types.SimpleNamespace(radius_search=fn)
+    neighbors.cuda_kernels = types.SimpleNamespace(radius_search_group=group_fn, radius_search=original.radius_search)
     try:
         yield
     finally:
         neighbors.cuda_kernels = original
 
 
-def recorded_searches(ck, calls):
-    """The kernel's wrapper, each call's arguments appended to `calls`."""
-    def record(*args):
-        calls.append(args)
-        return ck.radius_search(*args)
+def plain_searches(ck):
+    """A group's searches through the plain version, one by one."""
+    def run(searches, chunk=2048):
+        return [ck.radius_search_plain(*search, chunk) for search in searches]
+    return run
+
+
+def recorded_searches(ck, groups):
+    """The kernel's grouped wrapper, each group's searches appended to
+    `groups` as one list."""
+    def record(searches, chunk=2048):
+        searches = list(searches)
+        groups.append(searches)
+        return ck.radius_search_group(searches, chunk)
     return searches_through(record)
 
 
@@ -1969,10 +1984,11 @@ def slot_error(got, want, q, s, radius):
     return float(np.abs(d2(got) - d2(want)).max())
 
 
-def radius_chain(ck, dev, card):
+def radius_chain(ck, dev, card, seen=None):
     """Phase 15 on the card. Returns (the kernel's result row for the
     `kernels` line, its launches in the pyramids built through
-    build_registration_inputs)."""
+    build_registration_inputs). Each group it holds to the plain version is
+    appended to `seen`, if given, as (label, searches, tables)."""
     import tempfile
     import time
 
@@ -1982,63 +1998,90 @@ def radius_chain(ck, dev, card):
     from ref_geotransformer_tpu_torch import demo
     from ref_geotransformer_tpu_torch.config.modelnet import make_cfg as linemod_cfg
     from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
-    from ref_geotransformer_tpu_torch.data import PairLoader, build_pyramid, build_registration_inputs
+    from ref_geotransformer_tpu_torch.data import PairLoader, build_pyramid, build_registration_inputs, pad_points
     from ref_geotransformer_tpu_torch.data.datasets.linemod import LMODataset
     from ref_geotransformer_tpu_torch.engine.steps import ensure_pyramids, to_device
     from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import config as k_config
     from ref_geotransformer_tpu_torch.experiments.geotransformer_kitti_stage5 import fixture as k_fixture
     from ref_geotransformer_tpu_torch.experiments.geotransformer_modelnet_rpmnet_stage4 import fixture as lm_fixture
     from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
+    from ref_geotransformer_tpu_torch.tools.overfit_probe import probe_config, probe_pairs
     from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
 
     phase_t0 = time.perf_counter()
     errs = []
 
-    def compare(q, s, qm, sm, radius, limit, chunk=2048):
-        """The kernel against the plain version on one search: (rows that
-        differ at ties, slot error, mean neighbors of a valid query)."""
-        got = ck.radius_search(q, s, qm, sm, radius, limit, chunk)
-        again = ck.radius_search(q, s, qm, sm, radius, limit, chunk)
-        want = ck.radius_search_plain(q, s, qm, sm, radius, limit, chunk)
+    # the build: one search instance for every limit, its lists in shared memory
+    for limit in (1, 38, 128):
+        info = ck.radius_search_info(limit)
+        print(f"[radius:build] {card}: limit {limit}: search kernel {info['registers']} registers, "
+              f"{info['local_bytes']} bytes of local memory (stack and spills), {info['static_shared']} + "
+              f"{info['dynamic_shared']} bytes of shared memory, {info['blocks_per_sm']} blocks of "
+              f"{info['queries']} queries an SM; pack kernel {info['pack_registers']} registers, "
+              f"{info['pack_local_bytes']} bytes local; tiles of {info['tile']} supports, at most "
+              f"{info['max_slices']} slices a search (the cluster size)")
+        check(info["local_bytes"] == 0 and info["pack_local_bytes"] == 0,
+              f"radius search at limit {limit}: local memory in use: {info}")
+
+    def check_group(label, searches):
+        """The kernel against the plain version on one group: two launches
+        bit-identical, each table equal to its search run alone (a group of
+        one) and to the plain version up to ties. Prints and returns the
+        rows that differ at ties, the slot error and the mean neighbors of
+        a valid query, per search."""
+        got = ck.radius_search_group(searches)
+        slices = list(ck.radius_search_group.slices)
+        if seen is not None:
+            seen.append((label, searches, got))
+        again = ck.radius_search_group(searches)
         torch.cuda.synchronize()
-        m, n = q.shape[0], s.shape[0]
-        what = f"{m} x {n}, r {radius:g}, limit {limit}"
-        check(got.dtype == torch.int32 and tuple(got.shape) == (m, limit), f"radius_search {what}: {got.dtype} "
-                                                                          f"{tuple(got.shape)}")
-        check(torch.equal(got, again), f"radius_search {what}: two launches differ")
-        check(bool(((got >= 0) & (got <= n)).all()), f"radius_search {what}: an index outside 0..N")
-        check(bool((got[~qm] == n).all()), f"radius_search {what}: an invalid query's row holds a neighbor")
-        g, w, qn, sn = (x.cpu().numpy() for x in (got, want, q, s))
-        differ, bad, _ = table_mismatches(g, w, qn, sn, RADIUS_TIE, scaled=True)
-        check(not bad, f"radius_search {what}: {len(bad)} rows differ from the plain version beyond ties: {bad[:3]}")
-        err = slot_error(g, w, qn, sn, radius)
-        errs.append(err)
-        valid = qm.cpu().numpy()
-        filled = float((g[valid] < n).sum(1).mean()) if valid.any() else 0.0
-        return differ, err, filled
+        rows = []
+        for k, (table, twice, (q, s, qm, sm, radius, limit)) in enumerate(zip(got, again, searches)):
+            m, n = q.shape[0], s.shape[0]
+            what = f"{label}, search {k}: {m} x {n}, r {radius:g}, limit {limit}"
+            check(table.dtype == torch.int32 and tuple(table.shape) == (m, limit),
+                  f"radius_search_group {what}: {table.dtype} {tuple(table.shape)}")
+            check(torch.equal(table, twice), f"radius_search_group {what}: two launches differ")
+            check(torch.equal(table, ck.radius_search(q, s, qm, sm, radius, limit)),
+                  f"radius_search_group {what}: differs from the search alone")
+            check(bool(((table >= 0) & (table <= n)).all()), f"radius_search_group {what}: an index outside 0..N")
+            check(bool((table[~qm] == n).all()), f"radius_search_group {what}: an invalid query's row holds a neighbor")
+            want = ck.radius_search_plain(q, s, qm, sm, radius, limit)
+            g, w, qn, sn = (x.cpu().numpy() for x in (table, want, q, s))
+            differ, bad, _ = table_mismatches(g, w, qn, sn, RADIUS_TIE, scaled=True)
+            check(not bad, f"radius_search_group {what}: {len(bad)} rows differ from the plain version beyond ties: "
+                           f"{bad[:3]}")
+            err = slot_error(g, w, qn, sn, radius)
+            errs.append(err)
+            valid = qm.cpu().numpy()
+            rows.append((differ, err, float((g[valid] < n).sum(1).mean()) if valid.any() else 0.0))
+        print(f"[radius] {card}: {label}: {len(searches)} searches in one launch ("
+              + ", ".join(f"{c[0].shape[0]}x{c[1].shape[0]}/{c[5]}" for c in searches) + f"); slices {slices}; "
+              f"rows differing at ties {', '.join(str(r[0]) for r in rows)}, none beyond; slot error "
+              f"{max(r[1] for r in rows):.3e}; neighbors a valid query {', '.join('%.1f' % r[2] for r in rows)}; two "
+              f"launches bit-identical, each search as alone")
+        return rows
 
-    def compare_all(label, calls):
-        rows = [compare(*call) for call in calls]
-        print(f"[radius] {card}: {label}: {len(calls)} searches ("
-              + ", ".join(f"{c[0].shape[0]}x{c[1].shape[0]}/{c[5]}" for c in calls) + f"); rows differing at ties "
-              f"{', '.join(str(r[0]) for r in rows)}, none beyond; slot error {max(r[1] for r in rows):.3e}; "
-              f"neighbors a valid query {', '.join('%.1f' % r[2] for r in rows)}; two launches bit-identical")
+    def one_group(groups, label, count):
+        check(len(groups) == 1 and len(groups[0]) == count,
+              f"{label}: {[len(g) for g in groups]} searches in {len(groups)} groups, expected one group of {count}")
+        return groups[0]
 
-    # (a.1) the 3DMatch demo pair's pyramids at demo and full caps, both clouds
+    # (a.1) the 3DMatch demo pair's pyramids at demo and full caps, one group a pair
     pyramids = {}
     for demo_caps in (True, False):
         regime = "demo" if demo_caps else "full"
         cfg = make_cfg(demo=demo_caps)
         bb, caps = cfg.backbone, cfg.capacities
         pair = demo.load_pair(cfg, dev)
-        calls = []
-        with recorded_searches(ck, calls):
-            for cloud in ("ref", "src"):
-                build_pyramid(pair[f"{cloud}_points"], pair[f"{cloud}_masks"], bb.num_stages, bb.init_voxel_size,
-                              bb.init_radius, caps.neighbor_limits, caps.points, caps.search_chunk)
-        check(len(calls) == 20, f"3DMatch {regime}: {len(calls)} searches in a pair's pyramids, expected 20")
-        compare_all(f"3DMatch {regime} caps {caps.points}, limits {caps.neighbor_limits}", calls)
-        pyramids[regime] = (cfg, pair, calls)
+        groups = []
+        with recorded_searches(ck, groups):
+            build_registration_inputs(pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
+                                      bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits,
+                                      caps.points, search_chunk=caps.search_chunk)
+        searches = one_group(groups, f"3DMatch {regime}", 20)
+        check_group(f"3DMatch {regime} caps {caps.points}, limits {caps.neighbor_limits}", searches)
+        pyramids[regime] = (cfg, pair, searches)
 
     # (a.2) the KITTI pyramid of phase 14's raw scan, downsampled at 0.3 m on the card
     kcfg = k_config.make_cfg()
@@ -2048,13 +2091,13 @@ def radius_chain(ck, dev, card):
     points = torch.from_numpy(scan).to(dev)
     down, down_m = grid_subsample(points, torch.ones(len(scan), dtype=torch.bool, device=dev), kbb.init_voxel_size,
                                   kcaps.points[0])
-    calls = []
-    with recorded_searches(ck, calls):
+    groups = []
+    with recorded_searches(ck, groups):
         build_pyramid(down, down_m, kbb.num_stages, kbb.init_voxel_size, kbb.init_radius, kcaps.neighbor_limits,
                       kcaps.points, kcaps.search_chunk)
-    compare_all(f"KITTI scan of {RAW_SCAN_POINTS} points, {int(down_m.sum())} voxels, caps {kcaps.points}, limits "
-                f"{kcaps.neighbor_limits}", calls)
-    del points, down, down_m, calls
+    check_group(f"KITTI scan of {RAW_SCAN_POINTS} points, {int(down_m.sum())} voxels, caps {kcaps.points}, limits "
+                f"{kcaps.neighbor_limits}", one_group(groups, "KITTI", 13))
+    del points, down, down_m, groups
 
     # (a.3) a LineMod pair's pyramids (fixture frame, published caps)
     with tempfile.TemporaryDirectory() as lm_tmp:
@@ -2062,14 +2105,32 @@ def radius_chain(ck, dev, card):
         lcfg = linemod_cfg()
         dataset = LMODataset(lm_tmp, data_augmentation=False, points_limit=1000, mode="test", seed=lcfg.seed)
         pair, _ = next(PairLoader(dataset, lcfg).iter_single())
-        calls = []
-        with recorded_searches(ck, calls):
+        groups = []
+        with recorded_searches(ck, groups):
             ensure_pyramids(lcfg, to_device(pair, dev))
-    compare_all(f"LineMod pair, caps {lcfg.capacities.points}, limits {lcfg.capacities.neighbor_limits}", calls)
+    check_group(f"LineMod pair, caps {lcfg.capacities.points}, limits {lcfg.capacities.neighbor_limits}",
+                one_group(groups, "LineMod", 14))
 
-    # (a.4) seeded ragged clouds: M and N off the tiles, invalid queries,
+    # (a.4) probe (i)'s pairs (phase 14: the JAX slow test's regime, caps scaled by 0.06)
+    pcfg = probe_config(PROBE_GATED["scale"])
+    pbb, pcaps = pcfg.backbone, pcfg.capacities
+    probe = []
+    for ref, src, _ in probe_pairs(pcfg, PROBE_GATED["pairs"]):
+        padded = [pad_points(cloud, pcaps.points[0]) for cloud in (ref, src)]
+        probe.append([torch.from_numpy(a).to(dev) for cloud in padded for a in cloud])
+    groups = []
+    with recorded_searches(ck, groups):
+        for ref_p, ref_m, src_p, src_m in probe:
+            build_registration_inputs(ref_p, ref_m, src_p, src_m, pbb.num_stages, pbb.init_voxel_size,
+                                      pbb.init_radius, pcaps.neighbor_limits, pcaps.points,
+                                      search_chunk=pcaps.search_chunk)
+    check(len(groups) == len(probe) and all(len(g) == 20 for g in groups),
+          f"probe (i): {[len(g) for g in groups]} searches, expected one group of 20 a pair")
+    check_group(f"probe (i) pair, caps {pcaps.points}, limits {pcaps.neighbor_limits}", groups[0])
+
+    # (a.5) seeded ragged clouds: M and N off the tiles, invalid queries,
     # duplicated supports (exact ties), the shortest and longest rows, and
-    # fewer valid supports than the row holds
+    # fewer valid supports than the row holds, in one group
     rng = np.random.default_rng(15)
     s = rng.uniform(0.0, 1.0, (RAGGED_SUPPORTS, 3)).astype(np.float32)
     s[RAGGED_DUPLICATES: 2 * RAGGED_DUPLICATES] = s[:RAGGED_DUPLICATES]
@@ -2079,42 +2140,44 @@ def radius_chain(ck, dev, card):
     few = rng.uniform(size=200) < 0.3
     q, s, qm, sm, few = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (q, s, qm, sm, few))
     ragged = [(q, s, qm, sm, 0.25, 128), (q, s, qm, sm, 0.25, 1), (q, s, qm, sm, 0.1, 38),
-              (q[:1000], s[:200], qm[:1000], few, 2.0, 128)]
-    compare_all(f"seeded ragged clouds ({RAGGED_DUPLICATES} duplicated supports)", ragged)
-    got = ck.radius_search(*ragged[-1])
+              (q[:1000], s[:200], qm[:1000], few, 2.0, 128), (s, q, sm, qm, 0.15, 64)]
+    check_group(f"seeded ragged clouds ({RAGGED_DUPLICATES} duplicated supports)", ragged)
+    got = ck.radius_search(*ragged[3])
     check(bool(((got < 200).sum(1)[qm[:1000]] == int(few.sum())).all()),
           "radius_search: a valid query does not hold every valid support of the sparse cloud")
 
-    # (b) times: each full-caps level-0 search, then the 20 of a pair's pyramids
-    cfg, pair, calls = pyramids["full"]
+    # (b) times: each full-caps level-0 search alone, then a pair's 20 searches as one group
+    cfg, pair, searches = pyramids["full"]
     rows = []
-    for call, label in zip(calls[:3], ("neighbors[0]", "subsampling[0]", "upsampling[0]")):
+    for call, label in zip(searches[:3], ("neighbors[0]", "subsampling[0]", "upsampling[0]")):
         ms = cuda_ms(lambda: ck.radius_search(*call))
+        slices = ck.radius_search_group.slices
         plain_ms = cuda_ms(lambda: ck.radius_search_plain(*call), iters=3, warmup=1)
         bound_ms, bound_by = roofline(*radius_work(call[2], call[3], call[5]), PEAK_F32_FLOPS)
         rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"[radius:time] {card}: full caps {label} ({call[0].shape[0]} x {call[1].shape[0]}, "
-              f"{int(call[2].sum())} x {int(call[3].sum())} valid, limit {call[5]}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
-              f"of it")
+              f"{int(call[2].sum())} x {int(call[3].sum())} valid, limit {call[5]}, {slices[0]} slices): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of it")
     for regime in ("demo", "full"):
-        cfg, pair, calls = pyramids[regime]
-        ms = cuda_ms(lambda: [ck.radius_search(*c) for c in calls])
-        plain_ms = cuda_ms(lambda: [ck.radius_search_plain(*c) for c in calls], iters=3, warmup=1)
-        bound_ms = sum(roofline(*radius_work(c[2], c[3], c[5]), PEAK_F32_FLOPS)[0] for c in calls)
-        print(f"[radius:time] {card}: the 20 searches of a pair's pyramids at {regime} caps: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% "
-              f"of it")
+        cfg, pair, searches = pyramids[regime]
+        ms = cuda_ms(lambda: ck.radius_search_group(searches))
+        plain_ms = cuda_ms(lambda: [ck.radius_search_plain(*c) for c in searches], iters=3, warmup=1)
+        bound_ms = sum(roofline(*radius_work(c[2], c[3], c[5]), PEAK_F32_FLOPS)[0] for c in searches)
+        print(f"[radius:time] {card}: the 20 searches of a pair's pyramids at {regime} caps in one launch (slices "
+              f"{ck.radius_search_group.slices}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+              f"({plain_ms / ms:.1f}x); bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it")
 
-    # (b, c) build_registration_inputs and the inference path per pair, the
-    # kernel against the plain version in turns (plain, kernel, kernel,
-    # plain); each kernel turn launches it 20 times a pair
-    def timed(step, kernel):
-        """ms per call over TIMED_ITERS calls after a warm-up, with the kernel
-        or with the plain version in its place, and the kernel's launches in
-        those calls."""
+    # (c) build_registration_inputs and the inference path per pair, and
+    # probe (i)'s pyramids, the kernel against the plain version in turns
+    # (plain, kernel, kernel, plain); each kernel turn launches it once a
+    # pair, for 20 searches
+    def timed(step, kernel, pairs=1):
+        """ms per pair over TIMED_ITERS calls of step (each over `pairs`
+        pairs) after a warm-up, with the kernel or with the plain version in
+        its place, and the kernel's launches and searches in those calls."""
         def searches():
-            return contextlib.nullcontext() if kernel else searches_through(ck.radius_search_plain)
+            return contextlib.nullcontext() if kernel else searches_through(plain_searches(ck))
 
         with searches():
             step()
@@ -2125,30 +2188,42 @@ def radius_chain(ck, dev, card):
             for _ in range(TIMED_ITERS):
                 step()
             torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / TIMED_ITERS
-        return ms, ck.radius_search.launches
+            ms = 1e3 * (time.perf_counter() - t0) / (TIMED_ITERS * pairs)
+        return ms, ck.radius_search_group.launches, ck.radius_search_group.searches
+
+    def in_turns(name, step, pairs=1):
+        turns, launched = [], 0
+        for kernel in (False, True, True, False):
+            ms, groups, count = timed(step, kernel, pairs)
+            want = (TIMED_ITERS * pairs, 20 * TIMED_ITERS * pairs) if kernel else (0, 0)
+            check((groups, count) == want, f"{name}: {groups} radius-search launches for {count} searches over "
+                                           f"{TIMED_ITERS * pairs} pairs, expected {want}")
+            launched += groups
+            turns.append(f"{'kernel' if kernel else 'plain'} {ms:.2f}")
+        print(f"[radius:turns] {card}: {name}, ms/pair in turns: {', '.join(turns)} (one radius-search launch of 20 "
+              f"searches a pair with the kernel)")
+        return launched
 
     launches = 0
     for regime in ("demo", "full"):
         cfg, pair, _ = pyramids[regime]
         bb, caps = cfg.backbone, cfg.capacities
         model = demo.build_model(cfg, dev, seed=0)
-        steps = {"build_registration_inputs": lambda: build_registration_inputs(
+        launches += in_turns(f"build_registration_inputs at {regime} caps", lambda: build_registration_inputs(
             pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"], bb.num_stages,
-            bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points, search_chunk=caps.search_chunk),
-            "inference": lambda: demo.register(model, cfg, pair)}
-        for name, step in steps.items():
-            turns = []
-            for kernel in (False, True, True, False):
-                ms, count = timed(step, kernel)
-                check(count == (20 * TIMED_ITERS if kernel else 0),
-                      f"{name} at {regime} caps: {count} radius_search launches over {TIMED_ITERS} pairs")
-                launches += count
-                turns.append(f"{'kernel' if kernel else 'plain'} {ms:.2f}")
-            print(f"[radius:turns] {card}: {name} at {regime} caps, ms/pair in turns: {', '.join(turns)} (20 "
-                  f"radius_search launches a pair with the kernel)")
+            bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points, search_chunk=caps.search_chunk))
+        launches += in_turns(f"inference at {regime} caps", lambda: demo.register(model, cfg, pair))
         del model
         torch.cuda.empty_cache()
+
+    def probe_pyramids():
+        for ref_p, ref_m, src_p, src_m in probe:
+            build_registration_inputs(ref_p, ref_m, src_p, src_m, pbb.num_stages, pbb.init_voxel_size,
+                                      pbb.init_radius, pcaps.neighbor_limits, pcaps.points,
+                                      search_chunk=pcaps.search_chunk)
+
+    launches += in_turns(f"probe (i)'s pyramids (build_registration_inputs over its {len(probe)} pairs, caps "
+                         f"{pcaps.points})", probe_pyramids, pairs=len(probe))
     print(f"[radius] {card}: phase 15 took {time.perf_counter() - phase_t0:.1f} s")
     result = dict(rows[0], max_abs_err=max(errs), library_ms=None)
     return result, launches
@@ -2329,7 +2404,7 @@ def main():
 
     # 4. the inference path at demo and full capacities
     # phases 7-14 add the model's three kernels (read_counts); phases 4 and 15
-    # count the pyramid's radius_search
+    # count the pyramid's radius-search launches (one group a pair)
     launches = {"geo_embedding": 0, "geo_embedding_bwd": 0, "sinkhorn": 0, "radius_search": 0}
     for demo_caps in (True, False):
         regime = "demo" if demo_caps else "full"
@@ -2342,15 +2417,17 @@ def main():
         out = demo.register(model, cfg, pair)
         torch.cuda.synchronize()
         counts = read_counts(ck)
-        searches = ck.radius_search.launches
+        groups, searches = ck.radius_search_group.launches, ck.radius_search_group.searches
         print(f"[path:{regime}] kernel launches in one forward: geo_embedding {counts[0]}, "
-              f"geo_embedding_bwd {counts[1]}, sinkhorn {counts[2]}, radius_search {searches} (the pyramids)")
+              f"geo_embedding_bwd {counts[1]}, sinkhorn {counts[2]}, radius_search {groups} (the pair's pyramids: "
+              f"{searches} searches in one group)")
         check(counts == (2, 0, 1), f"{regime}: expected 2 geo_embedding, 0 backward and 1 sinkhorn launches, "
                                    f"got {counts}")
-        check(searches == 20, f"{regime}: expected 20 radius_search launches (10 a cloud), got {searches}")
+        check(groups == 1 and searches == 20, f"{regime}: expected one radius_search_group launch of 20 searches (10 "
+                                              f"a cloud), got {groups} launches of {searches}")
         for name, count in zip(launches, counts):
             launches[name] += count
-        launches["radius_search"] += searches
+        launches["radius_search"] += groups
         est = out["estimated_transform"]
         check(tuple(est.shape) == (4, 4) and bool(torch.isfinite(est).all()), f"{regime}: bad transform {est}")
         p = cfg.coarse_matching.num_correspondences

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ref_geotransformer_tpu_torch.ops.neighbors import radius_search
+from ref_geotransformer_tpu_torch.ops.neighbors import radius_search_group
 from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
 
 
@@ -31,6 +31,48 @@ def pad_points(points: np.ndarray, capacity: int) -> Tuple[np.ndarray, np.ndarra
     return padded, masks
 
 
+def _levels(points, masks, num_stages, voxel_size, capacities):
+    """Level 0 and its grid subsamples, each at twice the last voxel."""
+    points_list, masks_list = [points], [masks]
+    v = voxel_size
+    for i in range(1, num_stages):
+        v *= 2.0
+        sub_points, sub_masks = grid_subsample(points_list[-1], masks_list[-1], v, capacities[i])
+        points_list.append(sub_points)
+        masks_list.append(sub_masks)
+    return points_list, masks_list
+
+
+def _searches(points_list, masks_list, radius, neighbor_limits):
+    """The 3 S - 2 searches of one cloud's pyramid, level by level:
+    neighbors[i], then subsampling[i] and upsampling[i] below the last."""
+    searches = []
+    r = radius
+    for i, (pts, msk) in enumerate(zip(points_list, masks_list)):
+        searches.append((pts, pts, msk, msk, r, neighbor_limits[i]))
+        if i < len(points_list) - 1:
+            nxt, nxt_m = points_list[i + 1], masks_list[i + 1]
+            searches.append((nxt, pts, nxt_m, msk, r, neighbor_limits[i]))
+            searches.append((pts, nxt, msk, nxt_m, r * 2.0, neighbor_limits[i + 1]))
+        r *= 2.0
+    return searches
+
+
+def _pyramid(points_list, masks_list, tables):
+    return {
+        "points": tuple(points_list),
+        "masks": tuple(masks_list),
+        "neighbors": tuple(tables[0::3]),
+        "subsampling": tuple(tables[1::3]),
+        "upsampling": tuple(tables[2::3]),
+    }
+
+
+def _check_stages(num_stages, neighbor_limits, capacities):
+    if len(neighbor_limits) != num_stages or len(capacities) != num_stages:
+        raise ValueError("need one neighbor limit and one capacity per stage")
+
+
 def build_pyramid(
     points: torch.Tensor,
     masks: torch.Tensor,
@@ -41,45 +83,19 @@ def build_pyramid(
     capacities: Sequence[int],
     search_chunk: int = 2048,
 ) -> Dict[str, Tuple[torch.Tensor, ...]]:
-    """Pyramid and neighbor tables of ONE padded cloud.
+    """Pyramid and neighbor tables of ONE padded cloud: its levels first,
+    then its 3 S - 2 searches as one group (`radius_search_group`: one
+    search launch on a CUDA device).
 
     Returns a dict of tuples: points[i] (C_i, 3), masks[i] (C_i,),
     neighbors[i] (C_i, nl_i), subsampling[i] (C_{i+1}, nl_i),
     upsampling[i] (C_i, nl_{i+1}); tables are int32 with sentinel
     len(support).
     """
-    if len(neighbor_limits) != num_stages or len(capacities) != num_stages:
-        raise ValueError("need one neighbor limit and one capacity per stage")
-
-    points_list = [points]
-    masks_list = [masks]
-    v = voxel_size
-    for i in range(1, num_stages):
-        v *= 2.0
-        sub_points, sub_masks = grid_subsample(points_list[-1], masks_list[-1], v, capacities[i])
-        points_list.append(sub_points)
-        masks_list.append(sub_masks)
-
-    neighbors_list, subsampling_list, upsampling_list = [], [], []
-    r = radius
-    for i in range(num_stages):
-        pts, msk = points_list[i], masks_list[i]
-        neighbors_list.append(radius_search(pts, pts, msk, msk, r, neighbor_limits[i], search_chunk))
-        if i < num_stages - 1:
-            nxt, nxt_m = points_list[i + 1], masks_list[i + 1]
-            subsampling_list.append(radius_search(nxt, pts, nxt_m, msk, r, neighbor_limits[i], search_chunk))
-            upsampling_list.append(
-                radius_search(pts, nxt, msk, nxt_m, r * 2.0, neighbor_limits[i + 1], search_chunk)
-            )
-        r *= 2.0
-
-    return {
-        "points": tuple(points_list),
-        "masks": tuple(masks_list),
-        "neighbors": tuple(neighbors_list),
-        "subsampling": tuple(subsampling_list),
-        "upsampling": tuple(upsampling_list),
-    }
+    _check_stages(num_stages, neighbor_limits, capacities)
+    points_list, masks_list = _levels(points, masks, num_stages, voxel_size, capacities)
+    tables = radius_search_group(_searches(points_list, masks_list, radius, neighbor_limits), search_chunk)
+    return _pyramid(points_list, masks_list, tables)
 
 
 def build_registration_inputs(
@@ -99,10 +115,16 @@ def build_registration_inputs(
 ) -> Dict:
     """Model input dict for one (ref, src) pair; default features are
     all-ones (N, 1). A ground-truth `transform` (4, 4), mapping src onto
-    ref, goes into the dict as "transform" (the model's training labels)."""
-    args = (num_stages, voxel_size, radius, neighbor_limits, capacities, search_chunk)
-    ref = build_pyramid(ref_points, ref_masks, *args)
-    src = build_pyramid(src_points, src_masks, *args)
+    ref, goes into the dict as "transform" (the model's training labels).
+    Both clouds are subsampled first, then the two pyramids' searches run
+    as one group (one search launch on a CUDA device)."""
+    _check_stages(num_stages, neighbor_limits, capacities)
+    ref_levels = _levels(ref_points, ref_masks, num_stages, voxel_size, capacities)
+    src_levels = _levels(src_points, src_masks, num_stages, voxel_size, capacities)
+    ref_searches = _searches(*ref_levels, radius, neighbor_limits)
+    tables = radius_search_group(ref_searches + _searches(*src_levels, radius, neighbor_limits), search_chunk)
+    ref = _pyramid(*ref_levels, tables[: len(ref_searches)])
+    src = _pyramid(*src_levels, tables[len(ref_searches):])
     if ref_feats is None:
         ref_feats = torch.ones((ref_points.shape[0], 1), dtype=torch.float32, device=ref_points.device)
     if src_feats is None:

@@ -9,9 +9,10 @@ Counterpart of `ref_geotransformer_tpu/models/pallas_kernels.py`:
   `make_geometric_embedding_vjp` does;
 * `sinkhorn_log_norm` (kernel `csrc/sinkhorn.cu`) replaces
   `sinkhorn_log_norm_pallas`;
-* `radius_search` (kernel `csrc/radius_search.cu`) replaces the XLA
-  selection `lax.approx_min_k` of `ref_geotransformer_tpu/ops/neighbors.py::
-  radius_search_brute`, the pyramid's neighbor search.
+* `radius_search_group` (kernel `csrc/radius_search.cu`, a group of
+  searches in one launch; `radius_search` is a group of one) replaces the
+  XLA selection `lax.approx_min_k` of `ref_geotransformer_tpu/ops/
+  neighbors.py::radius_search_brute`, the pyramid's neighbor search.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, or raises if the kernel cannot
@@ -20,6 +21,9 @@ integer, incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -308,48 +312,123 @@ def radius_search_plain(q_points, s_points, q_masks, s_masks, radius, limit, chu
     return torch.cat(out, dim=0)
 
 
+class _GtCloud(ctypes.Structure):
+    _fields_ = [("points", ctypes.c_void_p), ("masks", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("tile_offset", ctypes.c_int)]
+
+
+class _GtSearch(ctypes.Structure):
+    _fields_ = [("out", ctypes.c_void_p), ("query_cloud", ctypes.c_int), ("support_cloud", ctypes.c_int),
+                ("limit", ctypes.c_int), ("r2", ctypes.c_float)]
+
+
+def radius_search_info(limit: int) -> dict:
+    """The radius-search build's facts on the current card at `limit`: its
+    tile, queries a block and caps; the search kernel's registers, local
+    (stack and spill) bytes, static and dynamic shared bytes and resident
+    blocks an SM; the pack kernel's registers and local bytes."""
+    out = (ctypes.c_int * 13)()
+    build.check(build.load_library().gt_radius_search_info(int(limit), out), "gt_radius_search_info")
+    keys = ("tile", "queries", "max_slices", "max_searches", "max_clouds", "max_limit", "registers", "local_bytes",
+            "static_shared", "dynamic_shared", "blocks_per_sm", "pack_registers", "pack_local_bytes")
+    return dict(zip(keys, out))
+
+
+@functools.lru_cache(maxsize=None)
+def _radius_caps() -> dict:
+    """The radius-search build's fixed sizes (the packing layout's tile,
+    the caps of a group), read once from the library."""
+    return radius_search_info(1)
+
+
+def _check_cloud(name, key, points, masks, device):
+    n = points.shape[0]
+    _require(tuple(points.shape) == (n, 3) and tuple(masks.shape) == (n,),
+             f"{name}: {key} points must be (N, 3) and masks (N,)")
+    for what, t, dtype in (("points", points, torch.float32), ("masks", masks, torch.bool)):
+        _require(t.device == device, f"{name}: {key} {what} on {t.device}, expected {device}")
+        _require(t.dtype == dtype, f"{name}: {key} {what} is {t.dtype}, expected {dtype}")
+        _require(t.is_contiguous(), f"{name}: {key} {what} is not contiguous")
+
+
+def radius_search_group(searches, chunk=2048):
+    """A list of radius searches, each (q_points, s_points, q_masks,
+    s_masks, radius, limit) as in `radius_search_plain`, in one call;
+    returns their tables in order. On CPU tensors it runs
+    `radius_search_plain` on each (`chunk` bounds its distance blocks). On
+    CUDA tensors it makes two launches for the whole group (at most 48
+    searches over at most 64 distinct clouds: `radius_search_info`): one
+    packs each distinct cloud (points and masks) once, one runs every
+    search, 1 <= limit <= RADIUS_SEARCH_MAX_LIMIT, each row in (d^2, index)
+    order with ties to the lower index, so two launches give the same bits.
+    The kernel cuts a search's supports into 1, 2, 4 or 8 slices, as many as
+    the group's work asks for, merged inside a thread-block cluster;
+    `radius_search_group.slices` holds the last group's count per search.
+    The tables are views of one buffer."""
+    searches = list(searches)
+    for q, s, _, _, _, limit in searches:
+        _require(1 <= limit <= s.shape[0], f"radius_search_group: limit {limit} outside 1..N = {s.shape[0]}")
+    if not searches:
+        return []
+    device = searches[0][0].device
+    if device.type == "cpu":
+        return [radius_search_plain(q, s, qm, sm, radius, limit, chunk) for q, s, qm, sm, radius, limit in searches]
+    _require(device.type == "cuda", f"radius_search_group: unsupported device {device}")
+    caps = _radius_caps()
+    tile = caps["tile"]
+    _require(len(searches) <= caps["max_searches"],
+             f"radius_search_group: {len(searches)} searches beyond the kernel's {caps['max_searches']}")
+    clouds, index, descs, sizes = [], {}, [], []
+    tiles = 0
+    for q, s, qm, sm, radius, limit in searches:
+        _require(limit <= RADIUS_SEARCH_MAX_LIMIT,
+                 f"radius_search_group: limit {limit} beyond the kernel's {RADIUS_SEARCH_MAX_LIMIT}")
+        _require(q.shape[0] >= 1, "radius_search_group: no queries")
+        ends = []
+        for key, points, masks in (("query", q, qm), ("support", s, sm)):
+            cloud = (points.data_ptr(), masks.data_ptr(), points.shape[0])
+            if cloud not in index:
+                _check_cloud("radius_search_group", key, points, masks, device)
+                index[cloud] = len(clouds)
+                clouds.append(cloud + (tiles,))
+                tiles += -(-points.shape[0] // tile)
+            ends.append(index[cloud])
+        descs.append((ends[0], ends[1], int(limit), float(radius) * float(radius)))
+        sizes.append((q.shape[0], limit))
+    _require(len(clouds) <= caps["max_clouds"],
+             f"radius_search_group: {len(clouds)} clouds beyond the kernel's {caps['max_clouds']}")
+    lib = build.load_library()
+    packed = torch.empty((tiles * tile, 4), dtype=torch.float32, device=device)
+    tile_max = torch.empty(tiles, dtype=torch.float32, device=device)
+    flat = torch.empty(sum(m * limit for m, limit in sizes), dtype=torch.int32, device=device)
+    tables, at = [], 0
+    for m, limit in sizes:
+        tables.append(flat[at : at + m * limit].view(m, limit))
+        at += m * limit
+    c_clouds = (_GtCloud * len(clouds))(*clouds)
+    c_searches = (_GtSearch * len(descs))(*((t.data_ptr(),) + d for t, d in zip(tables, descs)))
+    used = (ctypes.c_int * len(descs))()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.gt_radius_search_group(c_clouds, len(clouds), c_searches, len(descs), packed.data_ptr(),
+                                     tile_max.data_ptr(), used, stream)
+    build.check(err, "gt_radius_search_group")
+    radius_search_group.launches += 1
+    radius_search_group.searches += len(descs)
+    radius_search_group.slices = list(used)
+    return tables
+
+
+radius_search_group.launches = 0  # search launches (each after one packing launch)
+radius_search_group.searches = 0  # searches over those launches
+radius_search_group.slices = []  # the last group's slices per search, as the kernel chose them
+
+
 def radius_search(q_points, s_points, q_masks, s_masks, radius, limit, chunk=2048):
     """The `limit` nearest valid supports of each valid query inside
     `radius`; arguments and result as in `radius_search_plain` (`chunk`
-    bounds the plain version's distance blocks only). On a CUDA tensor it
-    runs the kernel, 1 <= limit <= RADIUS_SEARCH_MAX_LIMIT: distances fused
+    bounds the plain version's distance blocks only). A group of one
+    (`radius_search_group`): on a CUDA tensor the kernel, distances fused
     with a bounded top-k per query, no distance matrix in device memory,
     each row in (d^2, index) order, ties to the lower index, so two launches
     give the same bits."""
-    m, n = q_points.shape[0], s_points.shape[0]
-    _require(1 <= limit <= n, f"radius_search: limit {limit} outside 1..N = {n}")
-    if q_points.device.type == "cpu":
-        return radius_search_plain(q_points, s_points, q_masks, s_masks, radius, limit, chunk)
-    _require(q_points.is_cuda, f"radius_search: unsupported device {q_points.device}")
-    _require(limit <= RADIUS_SEARCH_MAX_LIMIT,
-             f"radius_search: limit {limit} beyond the kernel's {RADIUS_SEARCH_MAX_LIMIT}")
-    _require(m >= 1, "radius_search: no queries")
-    _require(tuple(q_points.shape) == (m, 3) and tuple(s_points.shape) == (n, 3)
-             and tuple(q_masks.shape) == (m,) and tuple(s_masks.shape) == (n,),
-             "radius_search: points must be (M, 3) and (N, 3), masks (M,) and (N,)")
-    for key, t, dtype in (("q_points", q_points, torch.float32), ("s_points", s_points, torch.float32),
-                          ("q_masks", q_masks, torch.bool), ("s_masks", s_masks, torch.bool)):
-        _require(t.device == q_points.device, f"radius_search: {key} on {t.device}, expected {q_points.device}")
-        _require(t.dtype == dtype, f"radius_search: {key} is {t.dtype}, expected {dtype}")
-        _require(t.is_contiguous(), f"radius_search: {key} is not contiguous")
-    lib = build.load_library()
-    out = torch.empty((m, limit), dtype=torch.int32, device=q_points.device)
-    slices = lib.gt_radius_search_slices(m, n, limit)
-    build.check(max(-slices, 0), "gt_radius_search_slices")
-    part_d = part_j = part_n = None
-    if slices > 1:
-        part_d = torch.empty((slices, m, limit), dtype=torch.float32, device=q_points.device)
-        part_j = torch.empty((slices, m, limit), dtype=torch.int32, device=q_points.device)
-        part_n = torch.empty((slices, m), dtype=torch.int32, device=q_points.device)
-    stream = torch.cuda.current_stream(q_points.device).cuda_stream
-    err = lib.gt_radius_search(
-        q_points.data_ptr(), s_points.data_ptr(), q_masks.data_ptr(), s_masks.data_ptr(), out.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (part_d, part_j, part_n)), m, n, limit,
-        float(radius) * float(radius), slices, stream,
-    )
-    build.check(err, "gt_radius_search")
-    radius_search.launches += 1
-    return out
-
-
-radius_search.launches = 0
+    return radius_search_group([(q_points, s_points, q_masks, s_masks, radius, limit)], chunk)[0]

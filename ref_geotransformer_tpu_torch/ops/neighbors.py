@@ -5,6 +5,7 @@ for its methods "approx" (the JAX default, approximate selection on a TPU)
 and "brute", the `limit` nearest valid supports inside `radius`, exactly,
 through `cuda_kernels.radius_search` (the kernel `csrc/radius_search.cu` on
 a CUDA tensor, masked distances and a chunked exact top-k on a CPU tensor);
+`radius_search_group` runs several such searches in one call (a pyramid's);
 its "bucket" method gathers candidates from a grid of radius-sized cells
 (`radius_search_bucketed`). Rows come out distance-sorted (nearest first),
 with sentinel index N in empty slots. `knn_search` keeps the k nearest
@@ -15,7 +16,7 @@ which neighbor-limit calibration counts against r^2.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -119,6 +120,15 @@ def radius_search(
     if method not in ("approx", "brute"):
         raise ValueError(f"unknown radius_search method {method!r}")
     return cuda_kernels.radius_search(q_points, s_points, q_masks, s_masks, radius, limit, chunk)
+
+
+def radius_search_group(searches: Sequence[Tuple], chunk: int = 2048) -> List[torch.Tensor]:
+    """Several searches of `radius_search` (methods "approx" / "brute"), each
+    (q_points, s_points, q_masks, s_masks, radius, limit), in one call; their
+    tables in order. Through `cuda_kernels.radius_search_group`: on a CUDA
+    device two launches for the whole group (a pyramid's, or a pair's), on
+    the CPU the plain version per search."""
+    return cuda_kernels.radius_search_group(searches, chunk)
 
 
 def knn_search(

@@ -32,7 +32,7 @@ GROUPS = (
     ("embedding backward kernel", r"geo_embedding_bwd_kernel|sum_chunks_kernel"),
     ("embedding forward kernel", r"geo_embedding_kernel"),
     ("Sinkhorn kernel", r"sinkhorn"),
-    ("radius-search kernel", r"radius_search_kernel|radius_merge_kernel"),
+    ("radius-search kernel", r"radius_search_group_kernel|radius_pack_kernel"),
     ("top-k and sort", r"topk|TopK|sort|Sort|radix|Radix"),
     ("matrix products", r"gemm|Gemm|GEMM|cutlass|xmma|sm90_|sm80_|cublas"),
     ("gather, scatter, index", r"index|Index|gather|Gather|scatter|Scatter"),

@@ -32,8 +32,8 @@ _SIGNATURES = {
     "gt_geo_embedding_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "gt_geo_embedding_bwd_chunks": [],
     "gt_sinkhorn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gt_radius_search": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "gt_radius_search_slices": [_I, _I, _I],
+    "gt_radius_search_group": [_P, _I, _P, _I, _P, _P, _P, _P],
+    "gt_radius_search_info": [_I, _P],
 }
 
 

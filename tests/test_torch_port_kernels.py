@@ -591,11 +591,11 @@ def _check_radius_kernel(q, s, qm, sm, radius, limit):
     """The kernel against the plain version up to ties, two launches bit-identical, one count per call."""
     from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
 
-    launches = cuda_kernels.radius_search.launches
+    launches = cuda_kernels.radius_search_group.launches
     got = cuda_kernels.radius_search(q, s, qm, sm, radius, limit)
     again = cuda_kernels.radius_search(q, s, qm, sm, radius, limit)
     torch.cuda.synchronize()
-    assert cuda_kernels.radius_search.launches == launches + 2
+    assert cuda_kernels.radius_search_group.launches == launches + 2
     want = cuda_kernels.radius_search_plain(q, s, qm, sm, radius, limit)
     assert got.dtype == torch.int32 and tuple(got.shape) == (q.shape[0], limit)
     assert torch.equal(got, again), "two launches differ"
@@ -613,9 +613,9 @@ def _check_radius_kernel(q, s, qm, sm, radius, limit):
                                               (1000, 1500, 64, 0.2), (512, 512, 128, 0.4)])
 def test_radius_search_kernel_matches_plain_on_card(m, n, limit, radius):
     """Random clouds: one point; ragged M and N (not multiples of the
-    kernel's 128 queries and 512-support tiles); several support slices and
-    the merge (2049 x 4097); each of the kernel's list sizes (16, 40, 64,
-    128), the longest mostly full."""
+    kernel's 128-query blocks and 256-support tiles); several support slices
+    merged in a cluster (2049 x 4097, a group of one); limits 16 to 128 in
+    the one shared-memory list, the longest mostly full."""
     dev = _cuda()
     _check_radius_kernel(*_radius_inputs(dev, m, n, seed=m + n), radius, limit)
 
@@ -644,7 +644,127 @@ def test_radius_search_kernel_raises_beyond_its_limit(limit):
     """limit 0 or 129 on a CUDA tensor raises and runs nothing, not the plain version."""
     dev = _cuda()
     q, s, qm, sm = _radius_inputs(dev, 200, 300, seed=1)
-    launches = cuda_kernels.radius_search.launches
-    with pytest.raises(ValueError, match="radius_search: limit"):
+    launches = cuda_kernels.radius_search_group.launches
+    with pytest.raises(ValueError, match=f"radius_search_group: limit {limit}"):
         cuda_kernels.radius_search(q, s, qm, sm, 0.2, limit)
-    assert cuda_kernels.radius_search.launches == launches
+    assert cuda_kernels.radius_search_group.launches == launches
+
+
+def _radius_group(dev, seed):
+    """Seeded searches over clouds that share supports, as
+    tests/test_torch_port_radius_search.py's ragged group, plus a search
+    large enough to be cut into several slices."""
+    q, s, qm, sm = _radius_inputs(dev, 301, 777, seed=seed, q_valid=0.8, duplicates=90)
+    few = torch.from_numpy(np.random.default_rng(seed + 1).uniform(size=200) < 0.2).to(dev)
+    b, _, bm, _ = _radius_inputs(dev, 129, 5, seed=seed + 2, q_valid=0.6)
+    big_q, big_s, big_qm, big_sm = _radius_inputs(dev, 3001, 5003, seed=seed + 3, duplicates=500)
+    return [(q, s, qm, sm, 0.25, 128), (q, s, qm, sm, 0.2, 1), (s, s, sm, sm, 0.15, 38),
+            (b, s[:200], bm, few, 2.0, 64), (s, q, sm, qm, 0.3, 17), (q[:5], s[:40], qm[:5], sm[:40], 0.5, 40),
+            (big_q, big_s, big_qm, big_sm, 0.1, 38), (big_s, big_s, big_sm, big_sm, 0.12, 128)]
+
+
+def _check_radius_group(group, tables):
+    from ref_geotransformer_tpu_torch.utils.neighbor_tables import table_mismatches
+
+    for k, (table, (q, s, qm, sm, radius, limit)) in enumerate(zip(tables, group)):
+        n = s.shape[0]
+        assert table.dtype == torch.int32 and tuple(table.shape) == (q.shape[0], limit)
+        assert bool(((table >= 0) & (table <= n)).all())
+        assert bool((table[~qm] == n).all()), f"search {k}: an invalid query's row holds a neighbor"
+        want = cuda_kernels.radius_search_plain(q, s, qm, sm, radius, limit)
+        _, bad, _ = table_mismatches(table.cpu().numpy(), want.cpu().numpy(), q.cpu().numpy(), s.cpu().numpy(),
+                                     RADIUS_TIE, scaled=True)
+        assert not bad, f"search {k}: {len(bad)} rows differ beyond ties; {bad[0]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_radius_search_group_matches_plain_on_card(seed):
+    """A ragged group in one search launch: every table against the plain
+    version up to ties, two launches bit-identical, each equal to the
+    search run alone (a group of one), and one count per launch."""
+    dev = _cuda()
+    group = _radius_group(dev, seed)
+    launches, searches = cuda_kernels.radius_search_group.launches, cuda_kernels.radius_search_group.searches
+    tables = cuda_kernels.radius_search_group(group)
+    again = cuda_kernels.radius_search_group(group)
+    torch.cuda.synchronize()
+    assert cuda_kernels.radius_search_group.launches == launches + 2
+    assert cuda_kernels.radius_search_group.searches == searches + 2 * len(group)
+    for a, b in zip(tables, again):
+        assert torch.equal(a, b), "two launches differ"
+    _check_radius_group(group, tables)
+    for table, search in zip(tables, group):
+        assert torch.equal(table, cuda_kernels.radius_search(*search)), "a search differs alone and in a group"
+
+
+@pytest.mark.cuda
+def test_radius_search_group_slices_give_the_same_bits():
+    """The slice merge keeps (d^2, j) order exactly. A query block over 2, 4
+    and 16 support tiles is cut into 2, 4 and 8 slices (as many as the tiles
+    allow, the group's work being small); beside a 20000-point self search
+    the same searches run unsliced. Each table matches the plain version up
+    to ties, two launches give the same bits, and the sliced and unsliced
+    tables are equal."""
+    dev = _cuda()
+    small = []
+    for n, limit, seed in ((512, 16, 20), (1024, 128, 21), (4096, 38, 22)):
+        q, s, qm, sm = _radius_inputs(dev, 128, n, seed=seed, duplicates=40)
+        small.append((q, s, qm, sm, 0.2, limit))
+    big = _radius_inputs(dev, 20000, 20000, seed=23)
+    sliced = cuda_kernels.radius_search_group(small)
+    assert cuda_kernels.radius_search_group.slices == [2, 4, 8]
+    again = cuda_kernels.radius_search_group(small)
+    whole = cuda_kernels.radius_search_group(small + [big + (0.05, 38)])
+    assert cuda_kernels.radius_search_group.slices[:3] == [1, 1, 1], cuda_kernels.radius_search_group.slices
+    torch.cuda.synchronize()
+    _check_radius_group(small, sliced)
+    for k, (a, b, c) in enumerate(zip(sliced, again, whole)):
+        assert torch.equal(a, b), f"search {k}: two launches differ"
+        assert torch.equal(a, c), f"search {k}: sliced and unsliced tables differ"
+
+
+@pytest.mark.cuda
+def test_radius_search_group_one_launch_for_a_pairs_pyramids():
+    """build_registration_inputs makes the pair's 20 searches (4 stages) in
+    one search launch; each table equals the search run alone on the same
+    levels (build_pyramid's own levels may differ: grid_subsample sums its
+    centroids with atomics)."""
+    from ref_geotransformer_tpu_torch.data.pyramid import build_registration_inputs, pad_points
+
+    dev = _cuda()
+    rng = np.random.default_rng(16)
+    clouds = [pad_points(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32), 4096) for n in (3500, 2900)]
+    (ref, ref_m), (src, src_m) = [tuple(torch.from_numpy(a).to(dev) for a in c) for c in clouds]
+    limits, radius = (38, 36, 36, 38), 0.0625
+    args = (4, 0.025, radius, limits, (4096, 4096, 1024, 512))
+    launches, searches = cuda_kernels.radius_search_group.launches, cuda_kernels.radius_search_group.searches
+    data = build_registration_inputs(ref, ref_m, src, src_m, *args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.radius_search_group.launches == launches + 1
+    assert cuda_kernels.radius_search_group.searches == searches + 20
+    for cloud in ("ref", "src"):
+        pts, msk = data[cloud]["points"], data[cloud]["masks"]
+        r = radius
+        for i in range(4):
+            want = cuda_kernels.radius_search(pts[i], pts[i], msk[i], msk[i], r, limits[i])
+            assert torch.equal(data[cloud]["neighbors"][i], want), f"{cloud} neighbors {i}"
+            if i < 3:
+                want = cuda_kernels.radius_search(pts[i + 1], pts[i], msk[i + 1], msk[i], r, limits[i])
+                assert torch.equal(data[cloud]["subsampling"][i], want), f"{cloud} subsampling {i}"
+                want = cuda_kernels.radius_search(pts[i], pts[i + 1], msk[i], msk[i + 1], 2 * r, limits[i + 1])
+                assert torch.equal(data[cloud]["upsampling"][i], want), f"{cloud} upsampling {i}"
+            r *= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [1, 38, 128])
+def test_radius_search_kernels_use_no_local_memory(limit):
+    """No stack and no spills in the search kernel (one instance serves
+    every limit, its lists in shared memory) or the packing kernel, and a
+    block resides at the longest limit."""
+    _cuda()
+    info = cuda_kernels.radius_search_info(limit)
+    assert info["local_bytes"] == 0 and info["pack_local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
+    assert info["max_limit"] == cuda_kernels.RADIUS_SEARCH_MAX_LIMIT
