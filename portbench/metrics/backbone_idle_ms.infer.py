@@ -1,0 +1,9 @@
+"""backbone_idle_ms.infer: device-idle ms per profiled pair while the host's
+main thread was inside `gt.backbone` (the KPConv-FPN over the stacked pair)
+(portbench/spans.py)."""
+
+from portbench.spans import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "infer", "backbone")

@@ -17,6 +17,7 @@ import torch
 
 from ref_geotransformer_tpu_torch.ops.neighbors import radius_search_group
 from ref_geotransformer_tpu_torch.ops.subsample import grid_subsample
+from ref_geotransformer_tpu_torch.utils.timer import span
 
 
 def pad_points(points: np.ndarray, capacity: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -32,14 +33,16 @@ def pad_points(points: np.ndarray, capacity: int) -> Tuple[np.ndarray, np.ndarra
 
 
 def _levels(points, masks, num_stages, voxel_size, capacities):
-    """Level 0 and its grid subsamples, each at twice the last voxel."""
+    """Level 0 and its grid subsamples, each at twice the last voxel (the
+    span `gt.pyramid.subsample`)."""
     points_list, masks_list = [points], [masks]
     v = voxel_size
-    for i in range(1, num_stages):
-        v *= 2.0
-        sub_points, sub_masks = grid_subsample(points_list[-1], masks_list[-1], v, capacities[i])
-        points_list.append(sub_points)
-        masks_list.append(sub_masks)
+    with span("gt.pyramid.subsample"):
+        for i in range(1, num_stages):
+            v *= 2.0
+            sub_points, sub_masks = grid_subsample(points_list[-1], masks_list[-1], v, capacities[i])
+            points_list.append(sub_points)
+            masks_list.append(sub_masks)
     return points_list, masks_list
 
 
@@ -90,12 +93,13 @@ def build_pyramid(
     Returns a dict of tuples: points[i] (C_i, 3), masks[i] (C_i,),
     neighbors[i] (C_i, nl_i), subsampling[i] (C_{i+1}, nl_i),
     upsampling[i] (C_i, nl_{i+1}); tables are int32 with sentinel
-    len(support).
+    len(support). In the span `gt.pyramid`.
     """
     _check_stages(num_stages, neighbor_limits, capacities)
-    points_list, masks_list = _levels(points, masks, num_stages, voxel_size, capacities)
-    tables = radius_search_group(_searches(points_list, masks_list, radius, neighbor_limits), search_chunk)
-    return _pyramid(points_list, masks_list, tables)
+    with span("gt.pyramid"):
+        points_list, masks_list = _levels(points, masks, num_stages, voxel_size, capacities)
+        tables = radius_search_group(_searches(points_list, masks_list, radius, neighbor_limits), search_chunk)
+        return _pyramid(points_list, masks_list, tables)
 
 
 def build_registration_inputs(
@@ -117,18 +121,20 @@ def build_registration_inputs(
     all-ones (N, 1). A ground-truth `transform` (4, 4), mapping src onto
     ref, goes into the dict as "transform" (the model's training labels).
     Both clouds are subsampled first, then the two pyramids' searches run
-    as one group (one search launch on a CUDA device)."""
+    as one group (one search launch on a CUDA device). In the span
+    `gt.pyramid`."""
     _check_stages(num_stages, neighbor_limits, capacities)
-    ref_levels = _levels(ref_points, ref_masks, num_stages, voxel_size, capacities)
-    src_levels = _levels(src_points, src_masks, num_stages, voxel_size, capacities)
-    ref_searches = _searches(*ref_levels, radius, neighbor_limits)
-    tables = radius_search_group(ref_searches + _searches(*src_levels, radius, neighbor_limits), search_chunk)
-    ref = _pyramid(*ref_levels, tables[: len(ref_searches)])
-    src = _pyramid(*src_levels, tables[len(ref_searches):])
-    if ref_feats is None:
-        ref_feats = torch.ones((ref_points.shape[0], 1), dtype=torch.float32, device=ref_points.device)
-    if src_feats is None:
-        src_feats = torch.ones((src_points.shape[0], 1), dtype=torch.float32, device=src_points.device)
+    with span("gt.pyramid"):
+        ref_levels = _levels(ref_points, ref_masks, num_stages, voxel_size, capacities)
+        src_levels = _levels(src_points, src_masks, num_stages, voxel_size, capacities)
+        ref_searches = _searches(*ref_levels, radius, neighbor_limits)
+        tables = radius_search_group(ref_searches + _searches(*src_levels, radius, neighbor_limits), search_chunk)
+        ref = _pyramid(*ref_levels, tables[: len(ref_searches)])
+        src = _pyramid(*src_levels, tables[len(ref_searches):])
+        if ref_feats is None:
+            ref_feats = torch.ones((ref_points.shape[0], 1), dtype=torch.float32, device=ref_points.device)
+        if src_feats is None:
+            src_feats = torch.ones((src_points.shape[0], 1), dtype=torch.float32, device=src_points.device)
     data = {"ref": ref, "src": src, "ref_feats": ref_feats, "src_feats": src_feats}
     if transform is not None:
         data["transform"] = transform

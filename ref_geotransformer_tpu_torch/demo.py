@@ -33,6 +33,7 @@ from ref_geotransformer_tpu_torch.data import build_registration_inputs, pad_poi
 from ref_geotransformer_tpu_torch.engine.checkpoint import load_model_file
 from ref_geotransformer_tpu_torch.models.geotransformer import GeoTransformer
 from ref_geotransformer_tpu_torch.ops.metrics import isotropic_transform_error
+from ref_geotransformer_tpu_torch.utils.timer import span
 from ref_geotransformer_tpu_torch.utils.visualization import dump_registration_ply
 from ref_geotransformer_tpu_torch.utils.weights import init_parameters
 
@@ -65,14 +66,16 @@ def build_model(cfg: GeoTransformerConfig, device: torch.device, seed: int = 0, 
 
 
 def register(model: GeoTransformer, cfg: GeoTransformerConfig, pair: Dict[str, torch.Tensor]) -> Dict:
-    """Pyramid + forward for one pair: the main inference path."""
+    """Pyramid + forward for one pair: the main inference path, in the span
+    `gt.register`."""
     bb, caps = cfg.backbone, cfg.capacities
-    data = build_registration_inputs(
-        pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
-        bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points,
-        search_chunk=caps.search_chunk,
-    )
-    return model(data)
+    with span("gt.register"):
+        data = build_registration_inputs(
+            pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
+            bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points,
+            search_chunk=caps.search_chunk,
+        )
+        return model(data)
 
 
 def main(argv=None) -> None:

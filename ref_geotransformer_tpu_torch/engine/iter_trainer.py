@@ -46,7 +46,7 @@ import torch
 from ref_geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
 from ref_geotransformer_tpu_torch.engine.state import GuardedState
 from ref_geotransformer_tpu_torch.engine.steps import eval_batch, forward, to_device, train_batch
-from ref_geotransformer_tpu_torch.engine.trainer import to_floats
+from ref_geotransformer_tpu_torch.engine.trainer import load_spans, to_floats
 from ref_geotransformer_tpu_torch.models.cordi import Cordi, cordi_downsample
 from ref_geotransformer_tpu_torch.parallel.multihost import is_primary
 from ref_geotransformer_tpu_torch.utils.common import get_log_string
@@ -145,7 +145,7 @@ class IterBasedEncoderTrainer:
         if resume and self.ckpt.has_snapshot():
             _, self.iteration = self.ckpt.load_snapshot(self.model, self.state, self.generator)
             self.logger.info(f"Resumed at iteration {self.iteration}.")
-        stream = cycle(self.train_loader)
+        stream = load_spans(cycle(self.train_loader))
         self.timer.record()
         while self.iteration < self.max_iteration:
             batch = next(stream)
@@ -300,7 +300,7 @@ class IterBasedDDPMTrainer:
         if resume and self.ckpt.has_snapshot():
             _, self.iteration = self.ckpt.load_snapshot(self.cordi, self.state, self.generator)
             self.logger.info(f"Resumed at iteration {self.iteration}.")
-        stream = cycle(self.train_loader)
+        stream = load_spans(cycle(self.train_loader))
         self.timer.record()
         while self.iteration < self.max_iteration:
             ds = [self.encode(next(stream)) for _ in range(self.ddpm_batch_size)]

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ref_geotransformer_tpu_torch.config import OptimConfig
+from ref_geotransformer_tpu_torch.utils.timer import span
 
 
 def lr_at(cfg: OptimConfig, count: int, steps_per_epoch: int) -> float:
@@ -67,30 +68,35 @@ class GuardedState:
         loss did not reach counts as a zero gradient, as under `jax.grad`),
         unless a gradient is non-finite; under gradient accumulation, one
         mini-step, which updates at the end of its window. Returns whether an
-        update was applied."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.acc is not None:
-            for acc, p in zip(self.acc, self.params):
-                acc.add_((p.grad - acc) / (self.mini_step + 1))
-            self.mini_step = (self.mini_step + 1) % self.cfg.grad_acc_steps
-            if self.mini_step:
+        update was applied. In the span `gt.update`: the finite test and its
+        read-back in `gt.update.guard`, the optimizer's step in
+        `gt.update.optimizer`."""
+        with span("gt.update"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.acc is not None:
+                for acc, p in zip(self.acc, self.params):
+                    acc.add_((p.grad - acc) / (self.mini_step + 1))
+                self.mini_step = (self.mini_step + 1) % self.cfg.grad_acc_steps
+                if self.mini_step:
+                    self.zero_grad()
+                    return False
+                for acc, p in zip(self.acc, self.params):
+                    p.grad = acc.clone()
+                    acc.mul_(0.0)
+            with span("gt.update.guard"):
+                finite = bool(torch.stack([torch.isfinite(p.grad).all() for p in self.params]).all())
+            if not finite:
+                self.skipped += 1
                 self.zero_grad()
                 return False
-            for acc, p in zip(self.acc, self.params):
-                p.grad = acc.clone()
-                acc.mul_(0.0)
-        finite = torch.stack([torch.isfinite(p.grad).all() for p in self.params]).all()
-        if not bool(finite):
-            self.skipped += 1
-            self.zero_grad()
-            return False
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr()
-        self.optimizer.step()
-        self.count += 1
-        return True
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr()
+            with span("gt.update.optimizer"):
+                self.optimizer.step()
+            self.count += 1
+            return True
 
 
 class TrainState(GuardedState):

@@ -37,6 +37,7 @@ from ref_geotransformer_tpu_torch.engine.state import GuardedState
 from ref_geotransformer_tpu_torch.models.losses import evaluate, overall_loss
 from ref_geotransformer_tpu_torch.parallel import dp
 from ref_geotransformer_tpu_torch.parallel.mesh import World
+from ref_geotransformer_tpu_torch.utils.timer import span
 
 
 def ensure_pyramids(cfg: GeoTransformerConfig, pair: Dict) -> Dict:
@@ -87,21 +88,27 @@ def train_pairs(model, state: GuardedState, pairs: Sequence[Dict], weights: Sequ
     of weight w_i, its loss scaled by `pair_scales`; with a world, the
     gradients' all-reduce; then one guarded optimizer update. Returns the
     weighted means of the detached losses {"loss", "c_loss", "f_loss"}, over
-    all ranks' pairs with a world."""
+    all ranks' pairs with a world. In the span `gt.train_step`, each pair's
+    loss in `gt.loss` and its backward in `gt.backward`, the reductions in
+    `gt.allreduce`."""
     cfg = model.cfg
-    state.zero_grad()
-    totals: Dict[str, torch.Tensor] = {}
-    for pair, scale in zip(pairs, pair_scales(weights, world)):
-        data = ensure_pyramids(cfg, pair)
-        out = model(data, training=True, generator=generator)
-        losses = overall_loss(out, data["transform"], cfg.coarse_loss, cfg.fine_loss, cfg.loss)
-        (losses["loss"] * scale).backward()
-        for key, value in losses.items():
-            totals[key] = totals.get(key, 0.0) + value.detach() * scale
-    if world is not None:
-        dp.all_reduce_gradients(state.params, sum(weights))
-        totals = dp.all_reduce_mean_dict(totals, sum(weights))
-    state.apply_gradients()
+    with span("gt.train_step"):
+        state.zero_grad()
+        totals: Dict[str, torch.Tensor] = {}
+        for pair, scale in zip(pairs, pair_scales(weights, world)):
+            data = ensure_pyramids(cfg, pair)
+            out = model(data, training=True, generator=generator)
+            with span("gt.loss"):
+                losses = overall_loss(out, data["transform"], cfg.coarse_loss, cfg.fine_loss, cfg.loss)
+            with span("gt.backward"):
+                (losses["loss"] * scale).backward()
+            for key, value in losses.items():
+                totals[key] = totals.get(key, 0.0) + value.detach() * scale
+        if world is not None:
+            with span("gt.allreduce"):
+                dp.all_reduce_gradients(state.params, sum(weights))
+                totals = dp.all_reduce_mean_dict(totals, sum(weights))
+        state.apply_gradients()
     return totals
 
 

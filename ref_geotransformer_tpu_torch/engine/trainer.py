@@ -8,7 +8,8 @@ the validation epoch (thinned by REF_GT_VAL_EVERY; the last epoch always
 validates) and scalar events. The learning rate in the log is that of the
 next applied update (`TrainState.lr()`). `profile_dir` records the steps
 [profile_steps[0], profile_steps[1]) with `torch.profiler` into a Chrome
-trace there.
+trace there, with the program's spans (`utils/timer.py::span`): each step's
+`gt.train_step` and each fetch of a batch, `gt.load`.
 
 One process drives one device. With a `world` (data parallelism, one
 process per card), each rank trains on its loader's shard and the steps
@@ -36,12 +37,25 @@ from ref_geotransformer_tpu_torch.utils.common import get_log_string
 from ref_geotransformer_tpu_torch.utils.events import EventWriter
 from ref_geotransformer_tpu_torch.utils.logger import Logger
 from ref_geotransformer_tpu_torch.utils.summary_board import SummaryBoard
-from ref_geotransformer_tpu_torch.utils.timer import Timer
+from ref_geotransformer_tpu_torch.utils.timer import Timer, span
+
+_END = object()
 
 
 def to_floats(values: dict) -> dict:
     """Device scalars -> Python floats (waits for the device)."""
     return {key: float(value) for key, value in values.items()}
+
+
+def load_spans(batches: Iterable):
+    """The items of `batches`, each fetched in the span `gt.load`."""
+    batches = iter(batches)
+    while True:
+        with span("gt.load"):
+            batch = next(batches, _END)
+        if batch is _END:
+            return
+        yield batch
 
 
 class EpochBasedTrainer:
@@ -128,7 +142,7 @@ class EpochBasedTrainer:
         for hook in self.before_epoch_hooks:
             hook(self)
         self.timer.record()
-        for batch in self.train_loader:
+        for batch in load_spans(self.train_loader):
             self.timer.add_prepare_time()
             for hook in self.before_step_hooks:
                 hook(self, batch)

@@ -4,7 +4,11 @@ Counterpart of `ref_geotransformer_tpu/models/geotransformer.py`
 (`GeometricTransformer` and `GeoTransformer.__call__`). The backbone runs
 once over the stacked (2, N, ...) ref/src pair, so its GroupNorm moments are
 joint over both clouds, like the JAX package's `pair_norm` vmap. Each
-`.detach()` stands where the JAX package has a `stop_gradient`.
+`.detach()` stands where the JAX package has a `stop_gradient`. The forward
+runs in the span `gt.forward` (`utils/timer.py::span`), each of its steps in
+a span of its own: `gt.partition`, `gt.ground_truth`, `gt.backbone`,
+`gt.transformer` (the embeddings in `gt.embedding`), `gt.coarse_matching`,
+`gt.patch_gather`, `gt.optimal_transport` and `gt.lgr`.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ref_geotransformer_tpu_torch.models.registration import get_node_correspond
 from ref_geotransformer_tpu_torch.models.sinkhorn import LearnableLogOptimalTransport
 from ref_geotransformer_tpu_torch.ops.index import masked_gather
 from ref_geotransformer_tpu_torch.ops.partition import point_to_node_partition
+from ref_geotransformer_tpu_torch.utils.timer import span
 
 
 class GeometricTransformer(nn.Module):
@@ -43,8 +48,9 @@ class GeometricTransformer(nn.Module):
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks=None, src_masks=None, generator=None):
         """All tensors batched (B, N, ...); masks (B, N) validity."""
-        ref_embeddings = self.embedding(ref_points, ref_masks)
-        src_embeddings = self.embedding(src_points, src_masks)
+        with span("gt.embedding"):
+            ref_embeddings = self.embedding(ref_points, ref_masks)
+            src_embeddings = self.embedding(src_points, src_masks)
         ref_feats, src_feats = self.transformer(
             self.in_proj(ref_feats), self.in_proj(src_feats), ref_embeddings, src_embeddings,
             masks0=ref_masks, masks1=src_masks, generator=generator,
@@ -95,7 +101,7 @@ class GeoTransformer(nn.Module):
         """Autograd records the forward only when `training` is set."""
         if training and self.dropout and generator is None:
             raise ValueError("training with attention dropout needs a generator")
-        with torch.set_grad_enabled(training):
+        with torch.set_grad_enabled(training), span("gt.forward"):
             return self._forward(data, training, generator)
 
     def _forward(self, data: Dict, training: bool, generator: Optional[torch.Generator]) -> Dict:
@@ -123,94 +129,103 @@ class GeoTransformer(nn.Module):
         }
 
         # 1. patch partition
-        _, ref_node_masks, ref_node_knn_indices, ref_node_knn_masks = point_to_node_partition(
-            ref_points_f, ref_points_c, k_patch, ref_masks_f, ref_masks_c
-        )
-        _, src_node_masks, src_node_knn_indices, src_node_knn_masks = point_to_node_partition(
-            src_points_f, src_points_c, k_patch, src_masks_f, src_masks_c
-        )
-        ref_node_knn_points = masked_gather(ref_points_f, ref_node_knn_indices, 0.0)
-        src_node_knn_points = masked_gather(src_points_f, src_node_knn_indices, 0.0)
+        with span("gt.partition"):
+            _, ref_node_masks, ref_node_knn_indices, ref_node_knn_masks = point_to_node_partition(
+                ref_points_f, ref_points_c, k_patch, ref_masks_f, ref_masks_c
+            )
+            _, src_node_masks, src_node_knn_indices, src_node_knn_masks = point_to_node_partition(
+                src_points_f, src_points_c, k_patch, src_masks_f, src_masks_c
+            )
+            ref_node_knn_points = masked_gather(ref_points_f, ref_node_knn_indices, 0.0)
+            src_node_knn_points = masked_gather(src_points_f, src_node_knn_indices, 0.0)
         output["ref_node_masks"] = ref_node_masks
         output["src_node_masks"] = src_node_masks
 
         # ground-truth node correspondences (training labels, evaluation)
         if transform is not None:
-            output["gt_node_overlap_map"], output["gt_node_ambiguous_map"] = get_node_correspondences(
-                ref_points_c, src_points_c, ref_node_knn_points, src_node_knn_points, transform,
-                cfg.model.ground_truth_matching_radius, ref_node_masks, src_node_masks, ref_node_knn_masks,
-                src_node_knn_masks, candidate_limit=cfg.capacities.gt_candidates,
-            )
+            with span("gt.ground_truth"):
+                output["gt_node_overlap_map"], output["gt_node_ambiguous_map"] = get_node_correspondences(
+                    ref_points_c, src_points_c, ref_node_knn_points, src_node_knn_points, transform,
+                    cfg.model.ground_truth_matching_radius, ref_node_masks, src_node_masks, ref_node_knn_masks,
+                    src_node_knn_masks, candidate_limit=cfg.capacities.gt_candidates,
+                )
 
         # 2. KPConv-FPN backbone over the stacked pair
-        feats = torch.stack([data["ref_feats"], data["src_feats"]], dim=0)
-        feats_list = self.backbone(feats, _stack_pair(ref, src))
+        with span("gt.backbone"):
+            feats = torch.stack([data["ref_feats"], data["src_feats"]], dim=0)
+            feats_list = self.backbone(feats, _stack_pair(ref, src))
         feats_c, feats_f = feats_list[-1], feats_list[0]
         ref_feats_f, src_feats_f = feats_f[0], feats_f[1]
 
         # 3. geometric transformer over the superpoints
-        ref_h, src_h = self.transformer(
-            ref_points_c[None], src_points_c[None], feats_c[0][None], feats_c[1][None],
-            ref_masks_c[None], src_masks_c[None], generator=generator if training else None,
-        )
-        ref_feats_c = ref_h[0] / torch.clamp(torch.linalg.norm(ref_h[0], dim=1, keepdim=True), min=1e-12)
-        src_feats_c = src_h[0] / torch.clamp(torch.linalg.norm(src_h[0], dim=1, keepdim=True), min=1e-12)
+        with span("gt.transformer"):
+            ref_h, src_h = self.transformer(
+                ref_points_c[None], src_points_c[None], feats_c[0][None], feats_c[1][None],
+                ref_masks_c[None], src_masks_c[None], generator=generator if training else None,
+            )
+            ref_feats_c = ref_h[0] / torch.clamp(torch.linalg.norm(ref_h[0], dim=1, keepdim=True), min=1e-12)
+            src_feats_c = src_h[0] / torch.clamp(torch.linalg.norm(src_h[0], dim=1, keepdim=True), min=1e-12)
         output["ref_feats_c"] = ref_feats_c
         output["src_feats_c"] = src_feats_c
         output["ref_feats_f"] = ref_feats_f
         output["src_feats_f"] = src_feats_f
 
         # 4. coarse proposals
-        ref_node_corr_indices, src_node_corr_indices, node_corr_scores = superpoint_matching(
-            ref_feats_c.detach(), src_feats_c.detach(), ref_node_masks, src_node_masks,
-            cfg.coarse_matching.num_correspondences, cfg.coarse_matching.dual_normalization,
-        )
-        output["ref_node_corr_indices"] = ref_node_corr_indices
-        output["src_node_corr_indices"] = src_node_corr_indices
-        node_corr_masks = torch.ones_like(node_corr_scores, dtype=torch.bool)
-
-        # training: sampled ground-truth targets replace the proposals
-        if training:
-            if transform is None:
-                raise ValueError("training needs the ground-truth transform in data['transform']")
-            ref_node_corr_indices, src_node_corr_indices, node_corr_scores, node_corr_masks = (
-                superpoint_target_sample(output["gt_node_overlap_map"], cfg.coarse_matching.num_targets,
-                                         cfg.coarse_matching.overlap_threshold, generator=generator)
+        with span("gt.coarse_matching"):
+            ref_node_corr_indices, src_node_corr_indices, node_corr_scores = superpoint_matching(
+                ref_feats_c.detach(), src_feats_c.detach(), ref_node_masks, src_node_masks,
+                cfg.coarse_matching.num_correspondences, cfg.coarse_matching.dual_normalization,
             )
+            output["ref_node_corr_indices"] = ref_node_corr_indices
+            output["src_node_corr_indices"] = src_node_corr_indices
+            node_corr_masks = torch.ones_like(node_corr_scores, dtype=torch.bool)
+
+            # training: sampled ground-truth targets replace the proposals
+            if training:
+                if transform is None:
+                    raise ValueError("training needs the ground-truth transform in data['transform']")
+                ref_node_corr_indices, src_node_corr_indices, node_corr_scores, node_corr_masks = (
+                    superpoint_target_sample(output["gt_node_overlap_map"], cfg.coarse_matching.num_targets,
+                                             cfg.coarse_matching.overlap_threshold, generator=generator)
+                )
         output["node_corr_masks"] = node_corr_masks
 
         # 5. patch gather
-        ref_idx, src_idx = ref_node_corr_indices.long(), src_node_corr_indices.long()
-        ref_node_corr_knn_indices = ref_node_knn_indices[ref_idx]  # (P, K)
-        src_node_corr_knn_indices = src_node_knn_indices[src_idx]
-        ref_node_corr_knn_masks = ref_node_knn_masks[ref_idx] & node_corr_masks[:, None]
-        src_node_corr_knn_masks = src_node_knn_masks[src_idx] & node_corr_masks[:, None]
-        ref_node_corr_knn_points = ref_node_knn_points[ref_idx]
-        src_node_corr_knn_points = src_node_knn_points[src_idx]
-        ref_node_corr_knn_feats = masked_gather(ref_feats_f, ref_node_corr_knn_indices, 0.0)
-        src_node_corr_knn_feats = masked_gather(src_feats_f, src_node_corr_knn_indices, 0.0)
+        with span("gt.patch_gather"):
+            ref_idx, src_idx = ref_node_corr_indices.long(), src_node_corr_indices.long()
+            ref_node_corr_knn_indices = ref_node_knn_indices[ref_idx]  # (P, K)
+            src_node_corr_knn_indices = src_node_knn_indices[src_idx]
+            ref_node_corr_knn_masks = ref_node_knn_masks[ref_idx] & node_corr_masks[:, None]
+            src_node_corr_knn_masks = src_node_knn_masks[src_idx] & node_corr_masks[:, None]
+            ref_node_corr_knn_points = ref_node_knn_points[ref_idx]
+            src_node_corr_knn_points = src_node_knn_points[src_idx]
+            ref_node_corr_knn_feats = masked_gather(ref_feats_f, ref_node_corr_knn_indices, 0.0)
+            src_node_corr_knn_feats = masked_gather(src_feats_f, src_node_corr_knn_indices, 0.0)
         output["ref_node_corr_knn_points"] = ref_node_corr_knn_points
         output["src_node_corr_knn_points"] = src_node_corr_knn_points
         output["ref_node_corr_knn_masks"] = ref_node_corr_knn_masks
         output["src_node_corr_knn_masks"] = src_node_corr_knn_masks
 
         # 6. optimal transport
-        matching_scores = torch.matmul(ref_node_corr_knn_feats, src_node_corr_knn_feats.transpose(1, 2))
-        matching_scores = matching_scores / ref_feats_f.shape[1] ** 0.5
-        matching_scores = self.optimal_transport(matching_scores, ref_node_corr_knn_masks, src_node_corr_knn_masks,
-                                                 training=training)
+        with span("gt.optimal_transport"):
+            matching_scores = torch.matmul(ref_node_corr_knn_feats, src_node_corr_knn_feats.transpose(1, 2))
+            matching_scores = matching_scores / ref_feats_f.shape[1] ** 0.5
+            matching_scores = self.optimal_transport(matching_scores, ref_node_corr_knn_masks,
+                                                     src_node_corr_knn_masks, training=training)
         output["matching_scores"] = matching_scores
 
         # 7. local-to-global registration
         fm = cfg.fine_matching
-        lgr = local_to_global_registration(
-            ref_node_corr_knn_points.detach(), src_node_corr_knn_points.detach(), ref_node_corr_knn_masks,
-            src_node_corr_knn_masks, matching_scores.detach(), node_corr_scores.detach(), k=fm.topk,
-            acceptance_radius=fm.acceptance_radius, mutual=fm.mutual, confidence_threshold=fm.confidence_threshold,
-            use_dustbin=fm.use_dustbin, use_global_score=fm.use_global_score,
-            correspondence_threshold=fm.correspondence_threshold,
-            correspondence_limit=cfg.capacities.correspondence_limit, num_refinement_steps=fm.num_refinement_steps,
-        )
+        with span("gt.lgr"):
+            lgr = local_to_global_registration(
+                ref_node_corr_knn_points.detach(), src_node_corr_knn_points.detach(), ref_node_corr_knn_masks,
+                src_node_corr_knn_masks, matching_scores.detach(), node_corr_scores.detach(), k=fm.topk,
+                acceptance_radius=fm.acceptance_radius, mutual=fm.mutual,
+                confidence_threshold=fm.confidence_threshold, use_dustbin=fm.use_dustbin,
+                use_global_score=fm.use_global_score, correspondence_threshold=fm.correspondence_threshold,
+                correspondence_limit=cfg.capacities.correspondence_limit,
+                num_refinement_steps=fm.num_refinement_steps,
+            )
         output["ref_corr_points"] = lgr.ref_corr_points
         output["src_corr_points"] = lgr.src_corr_points
         output["corr_scores"] = lgr.corr_scores

@@ -22,6 +22,7 @@ import torch
 
 from ref_geotransformer_tpu_torch.models import cuda_kernels
 from ref_geotransformer_tpu_torch.ops import selection
+from ref_geotransformer_tpu_torch.utils.timer import span
 
 
 def topk_neighbor_distances(
@@ -127,8 +128,9 @@ def radius_search_group(searches: Sequence[Tuple], chunk: int = 2048) -> List[to
     (q_points, s_points, q_masks, s_masks, radius, limit), in one call; their
     tables in order. Through `cuda_kernels.radius_search_group`: on a CUDA
     device two launches for the whole group (a pyramid's, or a pair's), on
-    the CPU the plain version per search."""
-    return cuda_kernels.radius_search_group(searches, chunk)
+    the CPU the plain version per search. In the span `gt.pyramid.search`."""
+    with span("gt.pyramid.search"):
+        return cuda_kernels.radius_search_group(searches, chunk)
 
 
 def knn_search(

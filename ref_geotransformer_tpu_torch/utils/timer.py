@@ -1,13 +1,28 @@
-"""Prepare/process time accounting (ref parity: utils/timer.py:4-79).
+"""Prepare/process time accounting (ref parity: utils/timer.py:4-79), and the
+program's spans.
 
-A copy of `ref_geotransformer_tpu/utils/timer.py`: only its imports differ (the port
-imports nothing of the JAX package).
+`Timer` is a copy of `ref_geotransformer_tpu/utils/timer.py`'s: only its imports
+differ (the port imports nothing of the JAX package).
+
+`span(name)` marks a section of the program (a layer boundary: `gt.register`,
+`gt.pyramid`, `gt.forward`, `gt.backbone`, ..., `gt.train_step`, `gt.update`,
+`gt.load`) for `torch.profiler`. While a profiler runs, a span is a
+`record_function` range: it lands in the profiler's own trace, on the clock of
+the device activities there, and is written out with that trace. Spans nest by
+containment on one thread; a pair's or a step's spans lie inside its top span
+(`gt.register` or `gt.train_step`). With no profiler active a span costs one
+check and enters nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict
+
+import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class Timer:
@@ -46,25 +61,9 @@ class Timer:
         return f"prepare: {self.get_prepare_time():.3f}s, process: {self.get_process_time():.3f}s"
 
 
-class TimerDict:
-    """Named section timers."""
-
-    def __init__(self):
-        self.timers: Dict[str, float] = {}
-        self.starts: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def tic(self, key: str) -> None:
-        self.starts[key] = time.time()
-
-    def toc(self, key: str) -> None:
-        elapsed = time.time() - self.starts[key]
-        self.timers[key] = self.timers.get(key, 0.0) + elapsed
-        self.counts[key] = self.counts.get(key, 0) + 1
-
-    def get_time(self, key: str) -> float:
-        return self.timers.get(key, 0.0) / max(self.counts.get(key, 0), 1)
-
-    def summary(self, keys=None) -> str:
-        keys = keys or list(self.timers.keys())
-        return ", ".join(f"{k}: {self.get_time(k):.3f}s" for k in keys)
+def span(name: str):
+    """A context manager around a named section: `record_function(name)` while
+    a profiler runs, a shared no-op context otherwise."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
