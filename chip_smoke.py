@@ -19,6 +19,11 @@ Phases; any failure raises and the script exits non-zero:
      masked, so ~10% of the entries); error against the stated bound, and
      the time of each beside its bound (the embedding's products at the
      f32-accurate tensor-core rate; Sinkhorn's exps at the SFU's rate);
+     and the embedding forward under the benchmark cells' prefix node masks
+     (310, 350 and 410 of 1024 nodes at C = 256; 210 and 318 of 384 at
+     C = 128; seeded clouds): its valid entries bit for bit those of a launch
+     without masks and the rest 0, its time beside the full grid's, the
+     bound of the valid work and the share of the grid's blocks computed;
   4. the inference path (pyramid + forward, 3DMatch stage-4 at published
      widths, bf16 backbone, seeded random weights) at demo and at full
      capacities: kernel launches of one forward (one radius-search launch
@@ -176,6 +181,7 @@ The line before the last is {"kernels": [...]}; the last is
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -264,7 +270,7 @@ EMBEDDING_BWD_BOUND = 1e-4
 NEAR_TIE = 1e-3
 RAGGED_NODES = 307  # the coarse cap of REF_GT_CAPS_SCALE=0.3: max(128, int(1024 * 0.3))
 SINKHORN_BOUND = 1e-3  # abs on valid entries; 100 dependent f32 log-sum-exp rounds, summed in another order
-PATH_FEATS_BOUND = 1e-3  # abs on the normalized coarse features, kernels vs plain, f32 path
+PATH_FEATS_BOUND = 1e-3  # abs on the normalized coarse features of valid nodes, kernels vs plain, f32 path
 # f32 train step, kernels vs plain: the losses to 1e-4 relative (the
 # forwards differ by ~2e-5 on the coarse features); the projection gradients
 # to 1e-2 of the largest magnitude among the four: besides the f32
@@ -308,6 +314,18 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+def coarse_feats_gaps(a, b, data):
+    """(valid, padded): the largest gaps of ref_feats_c between two forwards
+    on `data`, over the rows of valid and of padded coarse nodes. The
+    embedding kernel leaves its entries of padded nodes 0 where the plain
+    version computes them, and no caller reads them, so the padded rows of a
+    kernel run and a plain run differ by design: only the valid rows are
+    held to PATH_FEATS_BOUND."""
+    valid = data["ref"]["masks"][-1]
+    gap = (a["ref_feats_c"] - b["ref_feats_c"]).abs()
+    return float(gap[valid].max()), float(gap[~valid].max()) if bool((~valid).any()) else 0.0
+
+
 def roofline(flops, nbytes, peak_flops):
     """(bound_ms, bound_by): the larger of the operations over `peak_flops`
     and the bytes over the memory rate."""
@@ -325,6 +343,52 @@ def embedding_work(n, k, c, backward):
     flops = products * 2.0 * n * n * c * c
     small = 4 * (n * 3 + n * k * 3 + c // 2 + 2 * (c * c + c))
     return flops, 4.0 * n * n * c + small
+
+
+# (N, C, valid node counts) of the masked embedding rows of phase 3: the
+# coarse clouds of the 3DMatch cells (C = 256) and of the KITTI cells (C = 128)
+MASKED_EMBEDDING_CASES = ((1024, 256, (310, 350, 410)), (384, 128, (210, 318)))
+
+
+def masked_embedding_rows(ck, dev):
+    """The forward kernel under prefix node masks (MASKED_EMBEDDING_CASES)
+    on seeded clouds, k = 3: checked against a launch without masks (valid
+    entries bit for bit, the rest 0), timed beside the full grid, with the
+    bound of the valid work and the share of blocks that computed."""
+    import torch
+
+    rows = []
+    for n, c, counts in MASKED_EMBEDDING_CASES:
+        gen = torch.Generator(device=dev).manual_seed(n + c)
+        points = torch.rand((n, 3), generator=gen, device=dev) * 4.0 - 2.0
+        ref_vectors = (torch.rand((n, 3, 3), generator=gen, device=dev) - 0.5) * 0.6
+        div_term = torch.exp(torch.arange(0, c, 2, dtype=torch.float32, device=dev) * (-math.log(10000.0) / c))
+        w = [torch.randn(s, generator=gen, device=dev) / math.sqrt(c) for s in ((c, c), (c,), (c, c), (c,))]
+        args = (points, ref_vectors, div_term, *w, 0.2, 180.0 / (15.0 * math.pi), "max")
+        with torch.no_grad():
+            full = ck.geometric_embedding(*args)
+            full_ms = cuda_ms(lambda: ck.geometric_embedding(*args))
+            for valid in counts:
+                masks = torch.arange(n, device=dev) < valid
+                got = ck.geometric_embedding(*args, masks)
+                pair = masks[:, None] & masks[None, :]
+                exact = torch.equal(got[pair], full[pair]) and not bool(got[~pair].any())
+                del got, pair
+                launched, computed = ck.geometric_embedding.launched_blocks, int(ck.geometric_embedding.computed_blocks)
+                ms = cuda_ms(lambda: ck.geometric_embedding(*args, masks))
+                share = (int(ck.geometric_embedding.computed_blocks) - computed) / (
+                    ck.geometric_embedding.launched_blocks - launched)
+                bound_ms, bound_by = roofline(*embedding_work(valid, 3, c, backward=False), PEAK_F32_PRODUCT_FLOPS)
+                print(f"[kernel] geo_embedding N={n} C={c}, {valid} valid nodes (a prefix): {ms:.4f} ms against "
+                      f"{full_ms:.4f} ms without masks; bound of the valid work {bound_ms:.4f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of it; {100 * share:.2f}% of the blocks computed; valid entries "
+                      f"bit for bit, the rest 0: {exact}")
+                check(exact, f"geo_embedding N={n} with {valid} valid nodes: valid entries differ from the launch "
+                             "without masks, or an entry with a padded node is not 0")
+                rows.append({"n": n, "c": c, "valid": valid, "ms": ms, "full_ms": full_ms, "bound_ms": bound_ms,
+                             "blocks_computed": share})
+            del full
+    return rows
 
 
 def sinkhorn_work(b, m1, n1, iters):
@@ -635,9 +699,9 @@ def linemod_chain(ck, dev, card, kc, tmp):
             plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
             a, b = with_kernels(data), plain(data)
             torch.cuda.synchronize()
-            feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
-            print(f"[linemod:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
-                  f"(bound {PATH_FEATS_BOUND:.0e})")
+            feats_err, padded_err = coarse_feats_gaps(a, b, data)
+            print(f"[linemod:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} on valid nodes "
+                  f"(bound {PATH_FEATS_BOUND:.0e}; padded nodes {padded_err:.3e}, not compared)")
             check(feats_err <= PATH_FEATS_BOUND, f"linemod forward: ref_feats_c differs by {feats_err}")
             check(bool(torch.isfinite(a["estimated_transform"]).all()), "linemod forward: non-finite transform")
             del a, b
@@ -832,9 +896,9 @@ def kitti_chain(ck, dev, card, kc, tmp):
         plain = demo.build_model(cfg, dev, seed=1, use_kernels=False)
         a, b = with_kernels(data), plain(data)
         torch.cuda.synchronize()
-        feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
-        print(f"[kitti:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} "
-              f"(bound {PATH_FEATS_BOUND:.0e})")
+        feats_err, padded_err = coarse_feats_gaps(a, b, data)
+        print(f"[kitti:f32] {card}: forward, kernels vs plain: ref_feats_c {feats_err:.3e} on valid nodes "
+              f"(bound {PATH_FEATS_BOUND:.0e}; padded nodes {padded_err:.3e}, not compared)")
         check(feats_err <= PATH_FEATS_BOUND, f"kitti forward: ref_feats_c differs by {feats_err}")
         del a, b
         grads, step_losses = [], []
@@ -1478,7 +1542,7 @@ def surface_chain(ck, dev, card, kc, tmp):
     add(counts)
     b = plain(data)
     torch.cuda.synchronize()
-    feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+    feats_err, padded_err = coarse_feats_gaps(a, b, data)
     feats_f_err = float((a["ref_feats_f"] - b["ref_feats_f"]).abs().max())
     n_src = a["src_feats_c"].shape[0]
     key_a = a["ref_node_corr_indices"].long() * n_src + a["src_node_corr_indices"].long()
@@ -1488,7 +1552,8 @@ def surface_chain(ck, dev, card, kc, tmp):
     ms_err = float((ms_a - ms_b)[ms_a > -1e11].abs().max()) if len(ia) else float("nan")
     print(f"[surface:bf16] {card}: act_dtype bfloat16 at full caps, one forward: launches {counts}; the backbone's "
           f"block outputs {inner[0]}, its features out {a['ref_feats_f'].dtype}; kernels vs plain: ref_feats_f "
-          f"{feats_f_err:.3e}, ref_feats_c {feats_err:.3e} (bound {PATH_FEATS_BOUND:.0e}); {len(ia)} of "
+          f"{feats_f_err:.3e}, ref_feats_c {feats_err:.3e} on valid nodes (bound {PATH_FEATS_BOUND:.0e}; padded "
+          f"nodes {padded_err:.3e}, not compared); {len(ia)} of "
           f"{len(key_a)} proposals shared, matching_scores on them {ms_err:.3e}")
     check(counts == (2, 0, 1), f"bf16 forward: expected 2 + 0 + 1 launches, got {counts}")
     check(inner == [torch.bfloat16] and a["ref_feats_f"].dtype == torch.float32, f"bf16 forward: dtypes {inner}")
@@ -2381,6 +2446,7 @@ def main():
                 check_sinkhorn("seeded", *ot.prepare(scores, row_masks, col_masks)[:3], ot.num_iterations)
         del model
         torch.cuda.empty_cache()
+    masked_rows = masked_embedding_rows(ck, dev)
     k, c = make_cfg().geotransformer.angle_k, make_cfg().geotransformer.hidden_dim
     # the embedding's products against the f32-accurate tensor-core rate; the
     # bound on the CUDA cores' f32 rate is printed beside it, not recorded
@@ -2389,7 +2455,7 @@ def main():
     n, _, ms, plain_ms = emb_rows[-1]
     bound_ms, bound_by = roofline(*works["geo_embedding"], PEAK_F32_PRODUCT_FLOPS)
     results["geo_embedding"] = {"max_abs_err": max(r[1] for r in emb_rows), "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "masked": masked_rows}
     n, _, _, ms, plain_ms = bwd_rows[-1]
     bound_ms, bound_by = roofline(*works["geo_embedding_bwd"], PEAK_F32_PRODUCT_FLOPS)
     results["geo_embedding_bwd"] = {"max_abs_err": max(r[1] for r in bwd_rows),
@@ -2464,7 +2530,7 @@ def main():
     a = with_kernels(data)
     b = plain(data)
     torch.cuda.synchronize()
-    feats_err = float((a["ref_feats_c"] - b["ref_feats_c"]).abs().max())
+    feats_err, padded_err = coarse_feats_gaps(a, b, data)
     # random weights make the coarse scores nearly flat, so the top-256
     # proposals of the two runs can differ in near-tied pairs: compare the
     # Sinkhorn output on the proposals both runs made, matched by node pair
@@ -2477,7 +2543,8 @@ def main():
     ms_valid = ms_a > -1e11
     ms_err = float((ms_a - ms_b)[ms_valid].abs().max()) if len(ia) else float("nan")
     t_err = float((a["estimated_transform"] - b["estimated_transform"]).abs().max())
-    print(f"[path:f32] kernels vs plain: ref_feats_c {feats_err:.3e} (bound {PATH_FEATS_BOUND:.0e}); "
+    print(f"[path:f32] kernels vs plain: ref_feats_c {feats_err:.3e} on valid nodes (bound {PATH_FEATS_BOUND:.0e}; "
+          f"padded nodes {padded_err:.3e}, not compared); "
           f"{len(ia)} of {len(key_a)} node proposals shared, matching_scores on them {ms_err:.3e} "
           f"(valid entries); estimated_transform {t_err:.3e}")
     check(feats_err <= PATH_FEATS_BOUND, f"f32 path: ref_feats_c differs by {feats_err}")

@@ -9,18 +9,34 @@
 //     out_ij = (sc(d) @ Wd + bd) + max_t (sc(a_t) @ Wa + ba)
 // where sc(x) = [sin(x * div_term), cos(x * div_term)] (C values: C/2
 // frequencies, sines first) and Wd, Wa are (C, C) with rows in that order.
+// With the cloud's node masks, out_ij is computed where nodes i and j are
+// both valid and is 0 wherever either is padded: no caller reads those
+// entries (the attention masks padded keys, and padded queries reach no
+// valid row), and 0 keeps them finite.
 //
 // What bounds it on an H100: the products. Per pair it evaluates (k + 1)
 // products of a C-vector with a C x C matrix (0.5 MFLOP at k = 3, C = 256):
-// 0.55 TFLOP per call at N = 1024, against 1.07 GB of output. The products
-// must keep f32 accuracy (the output is held to the plain f32 version), and
-// the card's f32-accurate rate is on the tensor cores: three TF32 products
-// per f32 product at 495 TFLOP/s, 165 TFLOP/s in effect (3.3 ms at N =
-// 1024), against 67 TFLOP/s of f32 FMA on the CUDA cores (8.2 ms). Beside
-// them: (k + 1) * C/2 precise sin/cos pairs per pair (arguments reach ~25
-// rad) on the CUDA cores, and the weights, which every block reads from L2.
+// 0.55 TFLOP per call at N = 1024 with every node valid, against 1.07 GB of
+// output. The products must keep f32 accuracy (the output is held to the
+// plain f32 version), and the card's f32-accurate rate is on the tensor
+// cores: three TF32 products per f32 product at 495 TFLOP/s, 165 TFLOP/s in
+// effect (3.3 ms at N = 1024), against 67 TFLOP/s of f32 FMA on the CUDA
+// cores (8.2 ms). Beside them: (k + 1) * C/2 precise sin/cos pairs per pair
+// (arguments reach ~25 rad) on the CUDA cores, and the weights, which every
+// block reads from L2. With n of N nodes valid the products scale with n^2
+// (at n = 350 of 1024, 12% of them) and the output stays N^2 C floats: the
+// zeros are 0.3 ms of the memory's rate at N = 1024.
 //
 // What the design does about it:
+// - Only valid pairs are computed. The grid still covers all N^2 pairs, and
+//   each block decides from the masks on the device (no count read on the
+//   host): a block whose row i is padded, or whose 64 columns are all
+//   padded, writes its zeros as 16-byte stores and exits before any
+//   product; a block with some padded columns computes as one without
+//   masks and stores 0 in those columns. The coarse level's valid nodes are
+//   a prefix, so at n valid nodes about n * ceil(n / 64) of the
+//   ceil(N / 64) * N blocks compute. Computed tiles run the same arithmetic
+//   as without masks, so their valid entries are equal bit for bit.
 // - Products on the tensor cores: warp-level `mma.sync.m16n8k8` TF32 with
 //   f32 accumulators. Each operand x is split into big = x truncated to
 //   TF32 and small = (x - big) truncated to TF32 (x - big is exact in f32),
@@ -51,7 +67,12 @@
 //   millisecond of the memory's rate.
 // - Any N: the grid has ceil(N / 64) column tiles; the ragged last tile
 //   computes its columns j >= N from node N - 1 and does not store them.
-// Measured on an H100 (PERF.md): 10.8 ms at N = 1024, 2.8 ms at N = 512.
+// - Each computing block adds 1 to a device counter, so a caller can read
+//   how often the skip engaged.
+// Measured on an H100 (PERF.md): 10.8 ms at N = 1024, 2.8 ms at N = 512,
+// every node valid (11.0 ms at N = 1024 with the mask's code in place); with
+// 310 / 350 / 410 valid nodes of 1024, 1.3 / 1.7 / 2.2 ms, where 9.5 / 12.8 /
+// 17.5% of the blocks compute.
 // Tried in trials and slower or no faster: 16-row chunks in three stages,
 // the three products in passes over all tiles instead of per tile, a
 // persistent block per SM that also fills the next tile's first sinusoids,
@@ -116,7 +137,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     geo_embedding_kernel(const float* __restrict__ points, const float* __restrict__ ref_vectors,
                          const float* __restrict__ div_term, const float* __restrict__ wd,
                          const float* __restrict__ bd, const float* __restrict__ wa, const float* __restrict__ ba,
-                         float* __restrict__ out, int n, int k, int c_arg, float sigma_d, float factor_a) {
+                         const bool* __restrict__ masks, float* __restrict__ out,
+                         unsigned long long* __restrict__ computed, int n, int k, int c_arg, float sigma_d,
+                         float factor_a) {
   extern __shared__ float4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   float* idx = reinterpret_cast<float*>(&sm + 1);
@@ -132,6 +155,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int half = c / 2;
   const int nk = c / kChunk;         // chunks per branch
   const int total = (k + 1) * nk;    // k angle branches, then the distance branch
+
+  // a padded row, or a tile of padded columns: zeros, and nothing computed
+  // (the row's stored columns j0 .. j0 + cols - 1 are contiguous); else bit
+  // 2 * mt + h of `keep` says whether this thread's output column
+  // j0 + row0 + mt * 16 + g + 8 * h is valid
+  unsigned keep = 0xfu;
+  if (masks != nullptr) {
+    const int cols = min(kPairs, n - j0);
+    if (!(masks[i] && __syncthreads_or(tid < cols && masks[j0 + tid]))) {
+      float4* dst = reinterpret_cast<float4*>(out + ((size_t)i * n + j0) * c);
+      for (int e = tid; e < cols * c / 4; e += kThreads) dst[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      return;
+    }
+    keep = 0u;
+#pragma unroll
+    for (int b = 0; b < 2 * kMTiles; ++b) {
+      const int j = j0 + row0 + (b / 2) * 16 + g + 8 * (b % 2);
+      if (j < n && masks[j]) keep |= 1u << b;
+    }
+  }
+  if (tid == 0) atomicAdd(computed, 1ull);
 
   auto issue = [&](int s) {
     if (s < total) {
@@ -234,9 +278,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                 amax[mt][nt][2 * h + 1] = (branch == 0) ? v1 : fmaxf(amax[mt][nt][2 * h + 1], v1);
               } else {
                 const int j = j0 + row0 + mt * 16 + g + 8 * h;
-                if (j < n)
-                  *reinterpret_cast<float2*>(out + ((size_t)i * n + j) * c + col) =
-                      make_float2(v0 + amax[mt][nt][2 * h], v1 + amax[mt][nt][2 * h + 1]);
+                if (j < n) {
+                  float2 v = make_float2(v0 + amax[mt][nt][2 * h], v1 + amax[mt][nt][2 * h + 1]);
+                  if (!((keep >> (2 * mt + h)) & 1u)) v = make_float2(0.0f, 0.0f);  // a padded column
+                  *reinterpret_cast<float2*>(out + ((size_t)i * n + j) * c + col) = v;
+                }
               }
             }
           }
@@ -250,14 +296,15 @@ constexpr size_t smem_bytes(int k) { return sizeof(Smem) + sizeof(float) * (size
 
 template <int kC>
 int launch(const float* points, const float* ref_vectors, const float* div_term, const float* wd, const float* bd,
-           const float* wa, const float* ba, float* out, int n, int k, int c, float sigma_d, float factor_a,
-           cudaStream_t stream) {
+           const float* wa, const float* ba, const bool* masks, float* out, unsigned long long* computed, int n,
+           int k, int c, float sigma_d, float factor_a, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(geo_embedding_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem_bytes(k));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + kPairs - 1) / kPairs, n);
   geo_embedding_kernel<kC><<<grid, kThreads, smem_bytes(k), stream>>>(points, ref_vectors, div_term, wd, bd, wa, ba,
-                                                                       out, n, k, c, sigma_d, factor_a);
+                                                                       masks, out, computed, n, k, c, sigma_d,
+                                                                       factor_a);
   return (int)cudaGetLastError();
 }
 
@@ -265,16 +312,21 @@ int launch(const float* points, const float* ref_vectors, const float* div_term,
 
 // points (N, 3), ref_vectors (N, k, 3), div_term (C/2,), wd and wa (C, C)
 // with rows in [sin..., cos...] order, bd and ba (C,), out (N, N, C): f32,
-// contiguous, 16-byte aligned, on the device. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for shapes outside the limits).
+// contiguous, 16-byte aligned, on the device; masks (N,) bool on the device,
+// or null for every node valid; computed: one int64 on the device, to which
+// each computing block adds 1. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for shapes outside the limits).
 extern "C" int gt_geo_embedding(const float* points, const float* ref_vectors, const float* div_term,
-                                const float* wd, const float* bd, const float* wa, const float* ba, float* out, int n,
-                                int k, int c, float sigma_d, float factor_a, void* stream) {
+                                const float* wd, const float* bd, const float* wa, const float* ba, const bool* masks,
+                                float* out, unsigned long long* computed, int n, int k, int c, float sigma_d,
+                                float factor_a, void* stream) {
   if (n <= 0 || k < 1 || smem_bytes(k) > 227 * 1024 || c <= 0 || c > kMaxC ||
-      c % (8 * kWarpsN) != 0)
+      c % (8 * kWarpsN) != 0 || computed == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c == kMaxC)
-    return launch<kMaxC>(points, ref_vectors, div_term, wd, bd, wa, ba, out, n, k, c, sigma_d, factor_a, s);
-  return launch<0>(points, ref_vectors, div_term, wd, bd, wa, ba, out, n, k, c, sigma_d, factor_a, s);
+    return launch<kMaxC>(points, ref_vectors, div_term, wd, bd, wa, ba, masks, out, computed, n, k, c, sigma_d,
+                         factor_a, s);
+  return launch<0>(points, ref_vectors, div_term, wd, bd, wa, ba, masks, out, computed, n, k, c, sigma_d, factor_a,
+                   s);
 }

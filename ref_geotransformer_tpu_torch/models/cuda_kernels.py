@@ -32,6 +32,7 @@ from ref_geotransformer_tpu_torch.utils import build
 
 SINKHORN_MAX_DIM = 144  # largest M1 and N1 the Sinkhorn kernel takes
 RADIUS_SEARCH_MAX_LIMIT = 128  # longest neighbor row the radius-search kernel takes
+EMBEDDING_TILE = 64  # node pairs a block of the embedding kernel owns: row i, 64 columns
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -72,7 +73,15 @@ def embedding_indices(row_points, points, row_ref_vectors, sigma_d, factor_a):
     return dist / sigma_d, torch.atan2(sin_v, cos_v) * factor_a
 
 
-def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
+def _check_node_masks(name, points, masks):
+    if masks is not None:
+        _require(tuple(masks.shape) == (points.shape[0],) and masks.dtype == torch.bool,
+                 f"{name}: masks must be ({points.shape[0]},) bool, got {tuple(masks.shape)} {masks.dtype}")
+        _require(masks.device == points.device, f"{name}: masks on {masks.device}, expected {points.device}")
+
+
+def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max",
+                              masks=None):
     """Plain PyTorch structure embedding: the XLA path of
     `ref_geotransformer_tpu/models/embedding.py`, with the (N, N, k, C)
     angle projections materialized, then reduced over k. Differentiable in
@@ -81,27 +90,46 @@ def geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sig
 
     Args: points (N, 3); ref_vectors (N, k, 3) vectors to each node's k
     nearest nodes; div_term (C/2,); wd, wa (C, C) with rows in
-    [sin..., cos...] order; bd, ba (C,). Returns (N, N, C) float32.
+    [sin..., cos...] order; bd, ba (C,); masks (N,) bool, the nodes' validity,
+    or None. Returns (N, N, C) float32 with every entry computed, those of a
+    padded node too, as the JAX package does; the kernel
+    (`geometric_embedding`) leaves those 0, and no caller reads them.
     """
     _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r}: the kernel takes max only "
              "(the mean is models/embedding.py's own computation)")
+    _check_node_masks("geometric_embedding", points, masks)
     d_idx, a_idx = embedding_indices(points, points, ref_vectors, sigma_d, factor_a)
     d_emb = sinusoid(d_idx, div_term) @ wd + bd
     a_emb = sinusoid(a_idx, div_term) @ wa + ba  # (N, N, k, C)
     return d_emb + torch.amax(a_emb, dim=2)
 
 
-def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
+def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max",
+                        masks=None):
     """(N, N, C) geometric structure embedding of one cloud's nodes; the
     arguments are those of `geometric_embedding_plain`. On a CUDA tensor it
     runs the fused kernel, for any N: precise sin/cos and atan2, products on the tensor
-    cores in TF32 with each operand split into two TF32 terms (f32-accurate)."""
+    cores in TF32 with each operand split into two TF32 terms (f32-accurate).
+
+    With `masks`, the kernel computes the pairs of two valid nodes only and
+    writes 0 at every entry with a padded node: no caller reads those (the
+    attention masks padded keys; padded queries reach no valid row; matching
+    and the losses take node masks), and 0 keeps them finite. Its valid
+    entries equal those of a launch without masks bit for bit. The skip is
+    decided on the device: nothing is read back. Each computing block adds 1
+    to `geometric_embedding.computed_blocks`, an int64 on the launch's device
+    (made at the first launch on it); `geometric_embedding.launched_blocks`
+    counts the blocks launched on the host. Their ratio is the share of the
+    grid that computed."""
     if points.device.type == "cpu":
-        return geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a)
+        return geometric_embedding_plain(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a,
+                                         masks)
     _require(points.is_cuda, f"geometric_embedding: unsupported device {points.device}")
     n, k, c = points.shape[0], ref_vectors.shape[1], wd.shape[0]
     _check_f32_cuda("geometric_embedding", points.device, points=points, ref_vectors=ref_vectors,
                     div_term=div_term, wd=wd, bd=bd, wa=wa, ba=ba)
+    _check_node_masks("geometric_embedding", points, masks)
+    _require(masks is None or masks.is_contiguous(), "geometric_embedding: masks is not contiguous")
     _require(reduction_a == "max", f"geometric_embedding: angle reduction {reduction_a!r}: the kernel takes max only "
              "(the mean is models/embedding.py's own computation)")
     _require(n >= 1, "geometric_embedding: no nodes")
@@ -110,19 +138,26 @@ def geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, 
              "geometric_embedding: points must be (N, 3) and ref_vectors (N, k, 3)")
     _require(tuple(wd.shape) == (c, c) and tuple(wa.shape) == (c, c) and tuple(div_term.shape) == (c // 2,)
              and tuple(bd.shape) == (c,) and tuple(ba.shape) == (c,), "geometric_embedding: weight shapes")
+    counter = geometric_embedding.computed_blocks
+    if counter is None or counter.device != points.device:
+        counter = geometric_embedding.computed_blocks = torch.zeros((), dtype=torch.int64, device=points.device)
     out = torch.empty((n, n, c), dtype=torch.float32, device=points.device)
     lib = build.load_library()
     stream = torch.cuda.current_stream(points.device).cuda_stream
     err = lib.gt_geo_embedding(
         points.data_ptr(), ref_vectors.data_ptr(), div_term.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-        wa.data_ptr(), ba.data_ptr(), out.data_ptr(), n, k, c, float(sigma_d), float(factor_a), stream,
+        wa.data_ptr(), ba.data_ptr(), None if masks is None else masks.data_ptr(), out.data_ptr(),
+        counter.data_ptr(), n, k, c, float(sigma_d), float(factor_a), stream,
     )
     build.check(err, "gt_geo_embedding")
     geometric_embedding.launches += 1
+    geometric_embedding.launched_blocks += -(-n // EMBEDDING_TILE) * n
     return out
 
 
 geometric_embedding.launches = 0
+geometric_embedding.launched_blocks = 0  # blocks launched, over every launch
+geometric_embedding.computed_blocks = None  # (device int64) blocks that computed, over every launch on its device
 
 PLAIN_BWD_ELEMENTS = 1 << 26  # rows of a chunk x N x k x C kept under this in the plain backward
 
@@ -228,20 +263,27 @@ class GeometricEmbeddingFunction(torch.autograd.Function):
     """`geometric_embedding` with the gradient of `geometric_embedding_bwd`:
     the kernels for CUDA tensors, the plain versions for CPU tensors.
     Gradients reach wd, bd, wa and ba only; the geometry (points,
-    ref_vectors, div_term) is stop-gradient, as in the JAX package."""
+    ref_vectors, div_term) is stop-gradient, as in the JAX package.
+
+    The forward takes the node masks (`geometric_embedding`: 0 at entries
+    with a padded node) and the backward ignores them: it routes the
+    cotangent of every entry, so it is the masked forward's gradient where
+    the cotangent is 0 at the entries with a padded node, as it is in the
+    model (nothing reads them)."""
 
     @staticmethod
-    def forward(ctx, points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max"):
+    def forward(ctx, points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a="max", masks=None):
         ctx.save_for_backward(points, ref_vectors, div_term, wa, ba)
         ctx.constants = (sigma_d, factor_a)
-        return geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a)
+        return geometric_embedding(points, ref_vectors, div_term, wd, bd, wa, ba, sigma_d, factor_a, reduction_a,
+                                   masks)
 
     @staticmethod
     def backward(ctx, g):
         points, ref_vectors, div_term, wa, ba = ctx.saved_tensors
         dwd, dbd, dwa, dba = geometric_embedding_bwd(points, ref_vectors, div_term, wa, ba, g.contiguous(),
                                                      *ctx.constants)
-        return None, None, None, dwd, dbd, dwa, dba, None, None, None
+        return None, None, None, dwd, dbd, dwa, dba, None, None, None, None
 
 
 def sinkhorn_log_norm_plain(scores, log_mu, log_nu, num_iterations):

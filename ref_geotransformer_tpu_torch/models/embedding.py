@@ -56,6 +56,12 @@ class GeometricStructureEmbedding(nn.Module):
     `reduction_a="mean"` has no kernel, as in the JAX package, whose Pallas
     kernel is max-only: the module computes it in torch ops
     (`_mean_embedding`), on every device.
+
+    The masks pick each node's k nearest valid nodes and reach the kernel,
+    which leaves 0 at the entries (i, j) with a padded node i or j; the plain
+    versions compute those entries too. No caller reads them: the attention
+    masks padded keys, padded queries reach no valid row, and matching and
+    the losses take node masks.
     """
 
     def __init__(self, hidden_dim, sigma_d, sigma_a, angle_k, reduction_a="max", use_kernel=True):
@@ -122,10 +128,12 @@ class GeometricStructureEmbedding(nn.Module):
     def forward(self, points: torch.Tensor, masks: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.reduction_a not in ("max", "mean"):
             raise ValueError(f"Unsupported reduction mode: {self.reduction_a}.")
-        fn = cuda_kernels.geometric_embedding_plain
+        clouds = self.kernel_args(points, masks)
         if self.reduction_a == "mean":
-            fn = self._mean_embedding
-        elif self.use_kernel:
-            fn = cuda_kernels.GeometricEmbeddingFunction.apply
-        outs = [fn(*args) for args in self.kernel_args(points, masks)]
+            outs = [self._mean_embedding(*args) for args in clouds]
+        else:
+            fn = cuda_kernels.GeometricEmbeddingFunction.apply if self.use_kernel else \
+                cuda_kernels.geometric_embedding_plain
+            rows = [None] * len(clouds) if masks is None else [m.contiguous() for m in masks]
+            outs = [fn(*args, m) for args, m in zip(clouds, rows)]
         return outs[0][None] if len(outs) == 1 else torch.stack(outs, dim=0)

@@ -28,7 +28,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: the cudaError_t after the launch)
-    "gt_geo_embedding": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "gt_geo_embedding": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "gt_geo_embedding_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "gt_geo_embedding_bwd_chunks": [],
     "gt_sinkhorn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -271,6 +271,29 @@ def test_cpu_tensors_take_the_plain_versions():
     assert after == before
 
 
+@pytest.mark.parametrize("masks", ["prefix", "wrong shape", "wrong dtype"])
+def test_embedding_wrapper_takes_node_masks_on_the_cpu(masks):
+    """On CPU tensors the wrapper runs the plain version, which computes
+    every entry whatever the masks say (only the kernel skips padded
+    nodes); a mask of another shape or dtype than (N,) bool is refused."""
+    rng = np.random.default_rng(5)
+    n, c = 40, 32
+    points = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    ref_vectors = torch.from_numpy(rng.uniform(-0.3, 0.3, (n, 3, 3)).astype(np.float32))
+    div_term = torch.exp(torch.arange(0, c, 2, dtype=torch.float32) * (-math.log(10000.0) / c))
+    w = [torch.from_numpy(rng.normal(size=s).astype(np.float32) / math.sqrt(c)) for s in ((c, c), (c,), (c, c), (c,))]
+    args = (points, ref_vectors, div_term, *w, 0.2, 180.0 / (15.0 * math.pi), "max")
+    valid = torch.arange(n) < 25
+    if masks == "prefix":
+        got = cuda_kernels.geometric_embedding(*args, valid)
+        torch.testing.assert_close(got, cuda_kernels.geometric_embedding(*args), rtol=0, atol=0)
+        assert float(got[25:].abs().min()) > 0.0
+    else:
+        bad = valid[:-1] if masks == "wrong shape" else valid.to(torch.uint8)
+        with pytest.raises(ValueError, match="masks must be"):
+            cuda_kernels.geometric_embedding(*args, bad)
+
+
 @pytest.mark.parametrize("wrapper", ["geometric_embedding", "geometric_embedding_bwd", "sinkhorn_log_norm",
                                      "radius_search"])
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back(wrapper):
@@ -334,6 +357,101 @@ def test_embedding_kernel_matches_plain_on_card(n, c, padded):
     want = cuda_kernels.geometric_embedding_plain(*args)
     err = float((got - want).abs().max())
     assert err <= EMBEDDING_KERNEL_BOUND, f"max abs error {err:.3e} against the plain version"
+
+
+def _masked_embedding_case(dev, n, c, layout):
+    """Seeded kernel arguments for a cloud of N nodes and its (N,) masks:
+    "prefix<v>" keeps the first v valid and moves the padded nodes to one
+    location, as the model pads its node clouds; "scattered" keeps ~30% of
+    the nodes anywhere, a whole 64-column tile padded, the last node valid."""
+    rng = np.random.default_rng(n + c)
+    points = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    if layout == "scattered":
+        valid = rng.uniform(size=n) < 0.3
+        valid[128:192] = False
+        valid[-1] = True
+    else:
+        valid = np.arange(n) < int(layout[len("prefix"):])
+        points[~valid] = 0.0
+    points = torch.from_numpy(points).to(dev)
+    ref_vectors = torch.from_numpy(rng.uniform(-0.3, 0.3, (n, 3, 3)).astype(np.float32)).to(dev)
+    div_term = torch.exp(torch.arange(0, c, 2, dtype=torch.float32, device=dev) * (-math.log(10000.0) / c))
+    w = [torch.from_numpy(rng.normal(size=s).astype(np.float32) / math.sqrt(c)).to(dev)
+         for s in ((c, c), (c,), (c, c), (c,))]
+    return (points, ref_vectors, div_term, *w, 0.2, 180.0 / (15.0 * math.pi), "max"), torch.from_numpy(valid).to(dev)
+
+
+def _computing_blocks(valid):
+    """Blocks of the embedding kernel that compute under node masks `valid`:
+    per valid row, the 64-column tiles that hold a valid column."""
+    tile = cuda_kernels.EMBEDDING_TILE
+    n = valid.shape[0]
+    tiles = torch.nn.functional.pad(valid, (0, -n % tile)).view(-1, tile).any(dim=1)
+    return int(valid.sum()) * int(tiles.sum())
+
+
+def _embedding_counts():
+    fn = cuda_kernels.geometric_embedding
+    return fn.launches, fn.launched_blocks, 0 if fn.computed_blocks is None else int(fn.computed_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,layout", [(1024, 256, "prefix310"), (1024, 256, "prefix350"), (1024, 256, "prefix410"),
+                                        (384, 128, "prefix210"), (307, 256, "prefix290"), (307, 256, "prefix250"),
+                                        (1024, 256, "scattered"), (384, 128, "scattered"), (1024, 256, "prefix1024"),
+                                        (384, 128, "prefix384"), (307, 256, "prefix307")])
+def test_masked_embedding_kernel_skips_padded_nodes_on_card(n, c, layout):
+    """With node masks the kernel's entries of two valid nodes equal those of
+    a launch without masks bit for bit, and lie within the bound of the plain
+    version; every entry with a padded node is 0. The computing blocks are
+    the valid rows' tiles that hold a valid column, counted on the device.
+    The 3DMatch cells' coarse clouds hold 310-410 valid nodes of 1024 (C =
+    256), KITTI's 210-318 of 384 (C = 128, the generic-C instance); N = 307
+    ends in a ragged tile, partly valid at 290, all padded at 250. With every
+    node valid the output is that of a launch without masks, bit for bit,
+    and every block computes."""
+    dev = _cuda()
+    args, valid = _masked_embedding_case(dev, n, c, layout)
+    before = _embedding_counts()
+    full = cuda_kernels.geometric_embedding(*args)
+    got = cuda_kernels.geometric_embedding(*args, valid)
+    torch.cuda.synchronize()
+    after = _embedding_counts()
+    blocks = -(-n // cuda_kernels.EMBEDDING_TILE) * n
+    assert after[0] - before[0] == 2 and after[1] - before[1] == 2 * blocks
+    assert after[2] - before[2] == blocks + _computing_blocks(valid)
+    pair = valid[:, None] & valid[None, :]
+    assert torch.equal(got[pair], full[pair]), "valid entries differ from the launch without masks"
+    assert not bool(got[~pair].any()), "an entry with a padded node is not 0"
+    want = cuda_kernels.geometric_embedding_plain(*args)
+    err = float((got - want)[pair].abs().max())
+    assert err <= EMBEDDING_KERNEL_BOUND, f"max abs error {err:.3e} against the plain version on valid pairs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,layout", [(1024, 256, "prefix350"), (384, 128, "prefix210"), (307, 256, "scattered")])
+def test_masked_embedding_function_gradients_on_card(n, c, layout):
+    """Through `GeometricEmbeddingFunction`, with a cotangent that is 0 at
+    every entry with a padded node (as in the model): the weight gradients
+    with masks equal those without bit for bit (the backward kernel ignores
+    the masks), and the forward's valid entries too."""
+    dev = _cuda()
+    args, valid = _masked_embedding_case(dev, n, c, layout)
+    pair = valid[:, None] & valid[None, :]
+    g = torch.randn((n, n, c), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+    g = torch.where(pair[:, :, None], g, 0.0)
+    outs, grads = [], []
+    for masks in (None, valid):
+        weights = [t.clone().requires_grad_(True) for t in args[3:7]]
+        out = cuda_kernels.GeometricEmbeddingFunction.apply(*args[:3], *weights, *args[7:], masks)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append([t.grad for t in weights])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][pair], outs[1][pair])
+    assert not bool(outs[1][~pair].any())
+    for name, x, y in zip(("dwd", "dbd", "dwa", "dba"), *grads):
+        assert torch.equal(x, y), f"{name}: gradients with masks differ from those without"
 
 
 @pytest.mark.cuda
