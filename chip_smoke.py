@@ -7,6 +7,8 @@ Phases; any failure raises and the script exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi) and
      its largest SM clock (for the SFU's rate);
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source);
+     hold LGR's read-back-free SVD (ops/svd.py) against torch.linalg.svd on
+     its probe batch, bit for bit, for the installed torch;
   3. each kernel against its plain PyTorch version on the card, on the
      inputs the main paths give it: the structure embedding and its
      backward on the demo pair's node clouds (N = 512 and 1024, C = 256,
@@ -2338,6 +2340,10 @@ def main():
         for line in f:
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print("[build] " + line.strip())
+    from ref_geotransformer_tpu_torch.ops import svd as svd_ops
+
+    check(svd_ops.matches_torch(dev), f"ops/svd.py's cuSOLVER call differs from torch {torch.__version__}'s linalg.svd")
+    print(f"[build] ops/svd.py's cuSOLVER call is torch {torch.__version__}'s linalg.svd bit for bit on the probe batch")
 
     # 3. kernels against their plain versions, at main-path shapes
     results = {}

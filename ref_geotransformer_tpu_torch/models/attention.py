@@ -19,6 +19,12 @@ nothing. Kept entries are scaled by 1 / (1 - rate), as flax's
 `nn.Dropout` does. The keep masks come from `draw_keep`, which a test
 replaces to replay another run's masks. Returned attention scores are the
 ones before dropout.
+
+The (B, H, N, M) score tensors are summed, scaled and masked in place, and
+where autograd does not record (inference) also softmaxed in place, so an
+attention holds one of them at a time (two in training, where the backward
+keeps the softmax); the transformers drop each layer's returned scores at
+once. The values are those of the out-of-place expressions bit for bit.
 """
 
 from __future__ import annotations
@@ -70,8 +76,11 @@ def _finish_attention(scores, v, key_weights, key_masks, attention_factors, rate
     if key_weights is not None:
         scores = scores * key_weights[:, None, None, :]
     if key_masks is not None:
-        scores = torch.where(key_masks[:, None, None, :], scores, _NEG)
-    scores = torch.softmax(scores, dim=-1)
+        scores = scores.masked_fill_(~key_masks[:, None, None, :], _NEG)
+    if torch.is_grad_enabled() and scores.requires_grad:
+        scores = torch.softmax(scores, dim=-1)
+    else:
+        scores = torch.ops.aten._softmax.out(scores, -1, False, out=scores)
     hidden = torch.matmul(dropout(scores, rate, generator), v)
     return _merge_heads(hidden), scores
 
@@ -93,7 +102,7 @@ class MultiHeadAttention(nn.Module):
         q = _split_heads(self.proj_q(input_q), h)
         k = _split_heads(self.proj_k(input_k), h)
         v = _split_heads(self.proj_v(input_v), h)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+        scores = torch.matmul(q, k.transpose(-1, -2)).div_(q.shape[-1] ** 0.5)
         return _finish_attention(scores, v, key_weights, key_masks, attention_factors, self.dropout, generator)
 
 
@@ -126,10 +135,12 @@ class RPEMultiHeadAttention(nn.Module):
         w = self.proj_p.weight.reshape(h, d, -1)  # (H, c, C)
         qp = torch.einsum("bhnc,hcd->bhnd", q, w)  # (B, H, N, C)
         qb = torch.einsum("bhnc,hc->bhn", q, self.proj_p.bias.reshape(h, d))
-        scores_e = torch.matmul(q, k.transpose(-1, -2))
         # (B, N, H, C) @ (B, N, C, M) -> (B, N, H, M): one product per query node
-        scores_p = torch.matmul(qp.transpose(1, 2), embed_qk.transpose(-1, -2)).transpose(1, 2) + qb[..., None]
-        scores = (scores_e + scores_p) / d**0.5
+        scores_p = torch.matmul(qp.transpose(1, 2), embed_qk.transpose(-1, -2)).transpose(1, 2)
+        del qp
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        scores.add_(scores_p.add_(qb[..., None])).div_(d**0.5)  # (scores_e + (scores_p + qb)) / sqrt(d)
+        del scores_p
         return _finish_attention(scores, v, key_weights, key_masks, attention_factors, self.dropout, generator)
 
 
@@ -153,7 +164,7 @@ class PEMultiHeadAttention(nn.Module):
         q = _split_heads(self.proj_q(input_q) + self.proj_p_q(embed_q), h)
         k = _split_heads(self.proj_k(input_k) + self.proj_p_k(embed_k), h)
         v = _split_heads(self.proj_v(input_v), h)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+        scores = torch.matmul(q, k.transpose(-1, -2)).div_(q.shape[-1] ** 0.5)
         return _finish_attention(scores, v, key_weights, key_masks, attention_factors, self.dropout, generator)
 
 
@@ -347,12 +358,12 @@ class RPEConditionalTransformer(nn.Module):
                 masks1: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None):
         for block, layer in zip(self.blocks, self.layers):
             if block == "self":
-                feats0, _ = layer(feats0, feats0, embeddings0, memory_masks=masks0, generator=generator)
-                feats1, _ = layer(feats1, feats1, embeddings1, memory_masks=masks1, generator=generator)
+                feats0 = layer(feats0, feats0, embeddings0, memory_masks=masks0, generator=generator)[0]
+                feats1 = layer(feats1, feats1, embeddings1, memory_masks=masks1, generator=generator)[0]
             else:
-                new_feats0, _ = layer(feats0, feats1, memory_masks=masks1, generator=generator)
+                new_feats0 = layer(feats0, feats1, memory_masks=masks1, generator=generator)[0]
                 memory = feats0 if self.parallel else new_feats0
-                feats1, _ = layer(feats1, memory, memory_masks=masks0, generator=generator)
+                feats1 = layer(feats1, memory, memory_masks=masks0, generator=generator)[0]
                 feats0 = new_feats0
         return feats0, feats1
 
@@ -371,11 +382,11 @@ class PEConditionalTransformer(nn.Module):
     def forward(self, feats0, feats1, embeddings0, embeddings1, masks0=None, masks1=None):
         for block, layer in zip(self.blocks, self.layers):
             if block == "self":
-                feats0, _ = layer(feats0, feats0, embeddings0, embeddings0, memory_masks=masks0)
-                feats1, _ = layer(feats1, feats1, embeddings1, embeddings1, memory_masks=masks1)
+                feats0 = layer(feats0, feats0, embeddings0, embeddings0, memory_masks=masks0)[0]
+                feats1 = layer(feats1, feats1, embeddings1, embeddings1, memory_masks=masks1)[0]
             else:
-                feats0, _ = layer(feats0, feats1, memory_masks=masks1)
-                feats1, _ = layer(feats1, feats0, memory_masks=masks0)
+                feats0 = layer(feats0, feats1, memory_masks=masks1)[0]
+                feats1 = layer(feats1, feats0, memory_masks=masks0)[0]
         return feats0, feats1
 
 
@@ -398,11 +409,11 @@ class LRPEConditionalTransformer(nn.Module):
         e0, e1 = self.embedding(emb_indices0), self.embedding(emb_indices1)
         for block, layer in zip(self.blocks, self.layers):
             if block == "self":
-                feats0, _ = layer(feats0, feats0, e0, memory_masks=masks0)
-                feats1, _ = layer(feats1, feats1, e1, memory_masks=masks1)
+                feats0 = layer(feats0, feats0, e0, memory_masks=masks0)[0]
+                feats1 = layer(feats1, feats1, e1, memory_masks=masks1)[0]
             else:
-                feats0, _ = layer(feats0, feats1, memory_masks=masks1)
-                feats1, _ = layer(feats1, feats0, memory_masks=masks0)
+                feats0 = layer(feats0, feats1, memory_masks=masks1)[0]
+                feats1 = layer(feats1, feats0, memory_masks=masks0)[0]
         return feats0, feats1
 
 
@@ -418,9 +429,9 @@ class VanillaConditionalTransformer(nn.Module):
     def forward(self, feats0, feats1, masks0=None, masks1=None):
         for block, layer in zip(self.blocks, self.layers):
             if block == "self":
-                feats0, _ = layer(feats0, feats0, memory_masks=masks0)
-                feats1, _ = layer(feats1, feats1, memory_masks=masks1)
+                feats0 = layer(feats0, feats0, memory_masks=masks0)[0]
+                feats1 = layer(feats1, feats1, memory_masks=masks1)[0]
             else:
-                feats0, _ = layer(feats0, feats1, memory_masks=masks1)
-                feats1, _ = layer(feats1, feats0, memory_masks=masks0)
+                feats0 = layer(feats0, feats1, memory_masks=masks1)[0]
+                feats1 = layer(feats1, feats0, memory_masks=masks0)[0]
         return feats0, feats1

@@ -6,9 +6,12 @@ once over the stacked (2, N, ...) ref/src pair, so its GroupNorm moments are
 joint over both clouds, like the JAX package's `pair_norm` vmap. Each
 `.detach()` stands where the JAX package has a `stop_gradient`. The forward
 runs in the span `gt.forward` (`utils/timer.py::span`), each of its steps in
-a span of its own: `gt.partition`, `gt.ground_truth`, `gt.backbone`,
+a span of its own: `gt.backbone`, `gt.partition`, `gt.ground_truth`,
 `gt.transformer` (the embeddings in `gt.embedding`), `gt.coarse_matching`,
-`gt.patch_gather`, `gt.optimal_transport` and `gt.lgr`.
+`gt.patch_gather`, `gt.optimal_transport` and `gt.lgr`. The backbone comes
+first and the partition after it: the partition reads only the pyramid, so
+its launches follow the backbone's while the card runs them (in inference
+one CUDA graph replay, `gt.backbone.replay`: models/backbone.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 from ref_geotransformer_tpu_torch.config import GeoTransformerConfig
 from ref_geotransformer_tpu_torch.models.attention import RPEConditionalTransformer
 from ref_geotransformer_tpu_torch.models.backbone import KPConvFPN
+from ref_geotransformer_tpu_torch.models.backbone import stack_pair as _stack_pair  # noqa: F401 (tests import it here)
 from ref_geotransformer_tpu_torch.models.embedding import GeometricStructureEmbedding
 from ref_geotransformer_tpu_torch.models.matching import superpoint_matching, superpoint_target_sample
 from ref_geotransformer_tpu_torch.models.registration import get_node_correspondences, local_to_global_registration
@@ -58,10 +62,6 @@ class GeometricTransformer(nn.Module):
         return self.out_proj(ref_feats), self.out_proj(src_feats)
 
 
-def _stack_pair(ref: Dict, src: Dict) -> Dict:
-    return {key: tuple(torch.stack([r, s], dim=0) for r, s in zip(ref[key], src[key])) for key in ref}
-
-
 class GeoTransformer(nn.Module):
     """Point-cloud registration model; `forward(data)` takes the dict of
     `data.pyramid.build_registration_inputs` and returns the output dict,
@@ -71,7 +71,9 @@ class GeoTransformer(nn.Module):
     replaces the coarse proposals by targets sampled with `generator`.
 
     `use_kernels=False` runs the plain PyTorch versions of the CUDA kernels
-    on every device (the reference the kernels are held against).
+    on every device (the reference the kernels are held against), and the
+    backbone eagerly (`use_kernels=True` replays it as a CUDA graph in
+    inference on the card).
     `dropout` sets the transformer's attention dropout, drawn in training
     from `generator` (before the targets are sampled from it).
     """
@@ -87,7 +89,7 @@ class GeoTransformer(nn.Module):
         self.backbone = KPConvFPN(
             bb.input_dim, bb.output_dim, bb.init_dim, bb.kernel_size, bb.init_radius, bb.init_sigma,
             bb.group_norm, bb.num_stages, bb.fine_level, compute_dtype=dtypes[bb.dtype],
-            act_dtype=dtypes[bb.act_dtype],
+            act_dtype=dtypes[bb.act_dtype], use_graphs=use_kernels,
         )
         gt = cfg.geotransformer
         self.transformer = GeometricTransformer(
@@ -128,7 +130,11 @@ class GeoTransformer(nn.Module):
             "src_masks_f": src_masks_f,
         }
 
-        # 1. patch partition
+        # 1. KPConv-FPN backbone over the stacked pair
+        with span("gt.backbone"):
+            feats_list = self.backbone(*self.backbone.stack_inputs(data["ref_feats"], data["src_feats"], ref, src))
+
+        # 2. patch partition
         with span("gt.partition"):
             _, ref_node_masks, ref_node_knn_indices, ref_node_knn_masks = point_to_node_partition(
                 ref_points_f, ref_points_c, k_patch, ref_masks_f, ref_masks_c
@@ -150,10 +156,6 @@ class GeoTransformer(nn.Module):
                     src_node_knn_masks, candidate_limit=cfg.capacities.gt_candidates,
                 )
 
-        # 2. KPConv-FPN backbone over the stacked pair
-        with span("gt.backbone"):
-            feats = torch.stack([data["ref_feats"], data["src_feats"]], dim=0)
-            feats_list = self.backbone(feats, _stack_pair(ref, src))
         feats_c, feats_f = feats_list[-1], feats_list[0]
         ref_feats_f, src_feats_f = feats_f[0], feats_f[1]
 

@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from ref_geotransformer_tpu_torch.ops.se3 import get_transform_from_rotation_translation
+from ref_geotransformer_tpu_torch.ops.svd import svd
 
 
 def weighted_procrustes(
@@ -19,7 +20,9 @@ def weighted_procrustes(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """(*, 4, 4) rigid transform aligning src (*, N, 3) to ref (*, N, 3);
-    rows of zero weight (*, N) do not influence the solution."""
+    rows of zero weight (*, N) do not influence the solution. The 3 x 3 SVD
+    is `ops/svd.py::svd`: `torch.linalg.svd`'s results, on the card with no
+    read-back to the host."""
     if weights is None:
         weights = torch.ones(src_points.shape[:-1], dtype=src_points.dtype, device=src_points.device)
     weights = torch.clamp(weights, min=0.0)
@@ -32,7 +35,7 @@ def weighted_procrustes(
     ref_centered = ref_points - ref_centroid
 
     h = torch.matmul(src_centered.transpose(-1, -2), w * ref_centered)  # (*, 3, 3)
-    u, _, vt = torch.linalg.svd(h)
+    u, _, vt = svd(h)
     ut = u.transpose(-1, -2)
     v = vt.transpose(-1, -2)
     det = torch.linalg.det(torch.matmul(v, ut))

@@ -6,6 +6,10 @@ and `local_to_global_registration` in
 of the training labels; per-patch weighted Procrustes over all K^2 cells of
 (P, K, K) weight tensors, a top-C dense verification set, the patch
 hypothesis with the most inliers, then `num_refinement_steps` global refits.
+The fits take their 3 x 3 SVDs from `ops/svd.py::svd` (on the card
+cuSOLVER's batched Jacobi SVD, called as `torch.linalg.svd` calls it but
+without its checks' read-backs), so nothing in the registration reads back
+to the host.
 """
 
 from __future__ import annotations
@@ -174,7 +178,8 @@ def local_to_global_registration(
     fallback_transform = weighted_procrustes(src_corr_points, ref_corr_points, corr_scores)
     fb_aligned = apply_transform(src_corr_points, fallback_transform)
     fb_inlier = torch.linalg.norm(ref_corr_points - fb_aligned, dim=-1) < acceptance_radius
-    start_inlier = torch.where(patch_valid.any(), inlier[best], fb_inlier)
+    # index_select, not inlier[best]: a 0-dim index tensor is read back to the host
+    start_inlier = torch.where(patch_valid.any(), inlier.index_select(0, best.reshape(1))[0], fb_inlier)
     scores_i = corr_scores * start_inlier.to(corr_scores.dtype)
 
     # global refinement

@@ -30,7 +30,7 @@ def get_transform_from_rotation_translation(rotation: torch.Tensor, translation:
     transform = torch.zeros(batch_shape + (4, 4), dtype=rotation.dtype, device=rotation.device)
     transform[..., :3, :3] = rotation
     transform[..., :3, 3] = translation
-    transform[..., 3, 3] = 1.0
+    transform[..., 3, 3].fill_(1.0)  # assigning a Python number to one element of a card tensor reads back
     return transform
 
 

@@ -2,7 +2,8 @@
 package (its XLA / lax.scan paths and its Pallas kernels in interpret mode)
 on the CPU, and the CUDA kernels (the embedding forward and backward,
 Sinkhorn, the radius search) against the plain versions on a card (marked `cuda`: they skip
-where CUDA is absent). The embedding backward's CPU parity tests are in
+where CUDA is absent), and on the card LGR's read-back-free SVD against `torch.linalg.svd`, the
+backbone's CUDA graph against the eager backbone and the forward's freedom from host read-backs. The embedding backward's CPU parity tests are in
 tests/test_torch_port_train.py. JAX is imported inside the
 CPU tests only, so the card tests also run where JAX is not installed:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_kernels.py -m cuda`.
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from ref_geotransformer_tpu_torch.models import cuda_kernels
+from ref_geotransformer_tpu_torch.models import attention, cuda_kernels
 from ref_geotransformer_tpu_torch.models.embedding import GeometricStructureEmbedding
 from ref_geotransformer_tpu_torch.models.sinkhorn import LearnableLogOptimalTransport
 from ref_geotransformer_tpu_torch.utils.weights import from_jax_variables
@@ -886,3 +887,304 @@ def test_radius_search_kernels_use_no_local_memory(limit):
     assert info["local_bytes"] == 0 and info["pack_local_bytes"] == 0, info
     assert info["blocks_per_sm"] >= 1, info
     assert info["max_limit"] == cuda_kernels.RADIUS_SEARCH_MAX_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# LGR's read-back-free SVD and the backbone's graph, on the card
+# ---------------------------------------------------------------------------
+
+
+def _rotation(rng):
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    return (q * np.linalg.det(q)).astype(np.float32)
+
+
+def _procrustes_inputs(case, seed):
+    """Weighted Procrustes problems as LGR poses them: (P, K^2) cells of two
+    patches of K points (every pair of a ref and a src point) with sparse
+    scores; one problem of C correspondences of which half carry a score;
+    and the edges (a mirrored cloud, all weights 0, planar points, two
+    weighted correspondences: a rank-1 H whose rotation rounding decides)."""
+    rng = np.random.default_rng(seed)
+    rot = _rotation(rng)
+    if case[0] == "patches":
+        p, k, scale = case[1:]
+        ref = rng.uniform(-scale, scale, (p, 1, 3)) + rng.uniform(-0.3, 0.3, (p, k, 3))
+        src = (ref - 1.0) @ rot + rng.normal(0.0, 0.01, ref.shape)
+        ref = np.broadcast_to(ref[:, :, None, :], (p, k, k, 3)).reshape(p, k * k, 3)
+        src = np.broadcast_to(src[:, None, :, :], (p, k, k, 3)).reshape(p, k * k, 3)
+        w = rng.uniform(size=(p, k * k)) * (rng.uniform(size=(p, k * k)) < 0.05)
+        return src, ref, w
+    c, scale = 8192, 40.0
+    ref = rng.uniform(-scale, scale, (c, 3))
+    src = (ref - 2.0) @ rot + rng.normal(0.0, 0.05, ref.shape)
+    w = rng.uniform(size=c) * (rng.uniform(size=c) < 0.5)
+    if case[0] == "reflection":
+        src = ref * np.array([1.0, 1.0, -1.0])
+    elif case[0] == "all-zero weights":
+        w = np.zeros(c)
+    elif case[0] == "planar":
+        ref[:, 2] = 0.0
+        src = (ref - 2.0) @ rot
+    elif case[0] == "two weighted":
+        w = np.zeros(c)
+        w[[5, 900]] = (0.7, 0.2)
+    return src, ref, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 3, 3), (3, 3), (7, 3, 3)], ids=["batch", "matrix", "small batch"])
+def test_read_back_free_svd_is_torch_svd_on_card(shape):
+    """`ops/svd.py::svd` makes torch's cuSOLVER call without its checks: U, S
+    and Vh equal `torch.linalg.svd`'s bit for bit, with its strides, for
+    generic matrices and for zero, rank-1 and rank-2 ones (their singular
+    vectors decided by rounding), under `set_sync_debug_mode("error")`."""
+    from ref_geotransformer_tpu_torch.ops.svd import matches_torch, svd
+
+    dev = _cuda()
+    assert matches_torch(dev)  # the first call's probe, which reads back once
+    rng = np.random.default_rng(17)
+    a = rng.normal(size=shape)
+    if len(shape) == 3:
+        a[1] = 0.0
+        a[2] = np.outer(rng.normal(size=3), rng.normal(size=3))
+        a[3] = a[3] @ np.diag([1.0, 1.0, 0.0])
+    a = torch.from_numpy(a).to(dev, torch.float32)
+    want = torch.linalg.svd(a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = svd(a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, g, w in zip(("U", "S", "Vh"), got, want):
+        assert torch.equal(g, w), name
+        assert g.stride() == w.stride(), (name, g.stride(), w.stride())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("patches", 256, 64, 3.0), ("patches", 256, 128, 30.0), ("correspondences",),
+                                  ("reflection",), ("all-zero weights",), ("planar",), ("two weighted",)],
+                         ids=["3dmatch-cells", "kitti-cells", "correspondences", "reflection", "all-zero weights",
+                              "planar", "two weighted"])
+def test_read_back_free_procrustes_is_the_plain_function_on_card(case, monkeypatch):
+    """LGR's three shapes, (256, 64^2) cells (3DMatch), (256, 128^2) (KITTI,
+    tens of metres) and (8192,) correspondences, and the edges: weighted
+    Procrustes reads nothing back and gives the transforms it gives with
+    `torch.linalg.svd` bit for bit, two calls alike (H = 0 gives the
+    identity); so LGR's choices, which its degenerate fits (two or three
+    inliers) leave to rounding, stay the plain path's."""
+    from ref_geotransformer_tpu_torch.models import procrustes
+    from ref_geotransformer_tpu_torch.ops.svd import matches_torch
+
+    dev = _cuda()
+    assert matches_torch(dev)
+    src, ref, w = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+                   for x in _procrustes_inputs(case, seed=len(case)))
+    with monkeypatch.context() as m:
+        m.setattr(procrustes, "svd", torch.linalg.svd)
+        want = procrustes.weighted_procrustes(src, ref, w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = procrustes.weighted_procrustes(src, ref, w)
+        again = procrustes.weighted_procrustes(src, ref, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want) and torch.equal(again, want)
+    if case[0] == "all-zero weights":
+        assert torch.equal(got, torch.eye(4, device=dev))
+
+
+@pytest.mark.cuda
+def test_read_back_free_svd_marks_non_finite_matrices_nan():
+    """A matrix that holds a NaN or an infinity comes out NaN in U, S and Vh
+    (where `torch.linalg.svd` would raise or return NaN); the batch's other
+    matrices are `torch.linalg.svd`'s bit for bit."""
+    from ref_geotransformer_tpu_torch.ops.svd import matches_torch, svd
+
+    dev = _cuda()
+    assert matches_torch(dev)
+    a = torch.from_numpy(np.random.default_rng(23).normal(size=(8, 3, 3)).astype(np.float32)).to(dev)
+    bad = a.clone()
+    bad[2, 1, 1], bad[5, 0, 2] = float("nan"), float("inf")
+    got, want = svd(bad), torch.linalg.svd(a)
+    clean = torch.ones(8, dtype=torch.bool, device=dev)
+    clean[[2, 5]] = False
+    for g, w in zip(got, want):
+        assert bool(torch.isnan(g[~clean]).any(dim=-1).all())
+        assert torch.equal(g[clean], w[clean])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [3.0, 40.0])
+def test_lgr_is_the_plain_registration_on_card(scale, monkeypatch):
+    """Local-to-global registration (no read-back) equals itself with
+    `torch.linalg.svd` bit for bit on random patches and scores, whose
+    hypotheses hold a few inliers each: at 3DMatch's and at KITTI's scale."""
+    from ref_geotransformer_tpu_torch.models import procrustes
+    from ref_geotransformer_tpu_torch.models.registration import local_to_global_registration
+
+    dev = _cuda()
+    rng = np.random.default_rng(19)
+    p, k = 256, 64
+    ref = rng.uniform(-scale, scale, (p, 1, 3)) + rng.uniform(-0.3, 0.3, (p, k, 3))
+    src = ref @ _rotation(rng) + rng.normal(0.0, 0.05, ref.shape)
+    logits = rng.normal(size=(p, k + 1, k + 1))
+    scores = logits - np.log(np.exp(logits).sum(axis=(1, 2), keepdims=True))
+    args = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in (ref, src)]
+    args += [torch.from_numpy(rng.uniform(size=(p, k)) < 0.9).to(dev) for _ in range(2)]
+    args += [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in (scores, rng.uniform(size=p))]
+    kw = dict(k=3, acceptance_radius=0.1 * scale, confidence_threshold=0.0005, correspondence_limit=8192)
+    with monkeypatch.context() as m:
+        m.setattr(procrustes, "svd", torch.linalg.svd)
+        want = local_to_global_registration(*args, **kw)
+    got = local_to_global_registration(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(want.corr_masks.sum()) > 0
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+def _attention_out_of_place(module, input_q, input_k, input_v, embed_qk=None, key_masks=None):
+    """`models/attention.py`'s RPE attention (with `embed_qk`) or vanilla
+    attention (without), written with out-of-place sums, scaling, masking and
+    softmax: what the module's in-place version has to equal bit for bit.
+    Returns (hidden, scores)."""
+    h = module.num_heads
+    q = attention._split_heads(module.proj_q(input_q), h)
+    k = attention._split_heads(module.proj_k(input_k), h)
+    v = attention._split_heads(module.proj_v(input_v), h)
+    d = q.shape[-1]
+    if embed_qk is None:
+        scores = torch.matmul(q, k.transpose(-1, -2)) / d**0.5
+    else:
+        w = module.proj_p.weight.reshape(h, d, -1)
+        qp = torch.einsum("bhnc,hcd->bhnd", q, w)
+        qb = torch.einsum("bhnc,hc->bhn", q, module.proj_p.bias.reshape(h, d))
+        scores_e = torch.matmul(q, k.transpose(-1, -2))
+        scores_p = torch.matmul(qp.transpose(1, 2), embed_qk.transpose(-1, -2)).transpose(1, 2) + qb[..., None]
+        scores = (scores_e + scores_p) / d**0.5
+    if key_masks is not None:
+        scores = torch.where(key_masks[:, None, None, :], scores, attention._NEG)
+    scores = torch.softmax(scores, dim=-1)
+    return attention._merge_heads(torch.matmul(scores, v)), scores
+
+
+def _attention_case(kind, grad, dev, c, heads, n, m):
+    """The attention module of `kind` and its in-place and out-of-place
+    results (and the parameters' gradients with grad on), on `dev`: seeded
+    weights and inputs, the keys past 70% masked."""
+    torch.manual_seed(5)
+    module = (attention.RPEMultiHeadAttention(c, heads) if kind == "rpe"
+              else attention.MultiHeadAttention(c, heads)).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(1, n, c, generator=g).to(dev)
+    y = torch.randn(1, m, c, generator=g).to(dev)
+    embed = torch.randn(1, n, m, c, generator=g).to(dev) if kind == "rpe" else None
+    masks = (torch.arange(m) < int(0.7 * m))[None].to(dev)
+    args = (x, y, y) + ((embed,) if kind == "rpe" else ())
+    with torch.set_grad_enabled(grad):
+        got = module(*args, key_masks=masks)
+        want = _attention_out_of_place(module, x, y, y, embed, masks)
+    pairs = list(zip(got, want))
+    if grad:
+        params = list(module.parameters())
+        pairs += zip(torch.autograd.grad(got[0].square().sum(), params),
+                     torch.autograd.grad(want[0].square().sum(), params))
+    return pairs
+
+
+@pytest.mark.parametrize("kind", ["rpe", "vanilla"])
+@pytest.mark.parametrize("grad", [False, True], ids=["inference", "training"])
+def test_in_place_attention_is_the_out_of_place_expression(kind, grad):
+    """`models/attention.py`'s in-place sums, scaling, masking and (in
+    inference) softmax give the out-of-place expressions' hidden states and
+    scores bit for bit on the CPU; with grad on, the gradients too."""
+    for got, want in _attention_case(kind, grad, torch.device("cpu"), 32, 4, 24, 20):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rpe", "vanilla"])
+@pytest.mark.parametrize("grad", [False, True], ids=["inference", "training"])
+def test_in_place_attention_is_the_out_of_place_expression_on_card(kind, grad):
+    """The same at 3DMatch's coarse size (1024 nodes, 256 channels, 4
+    heads), on the card."""
+    for got, want in _attention_case(kind, grad, _cuda(), 256, 4, 1024, 1024):
+        assert torch.equal(got, want)
+
+def _card_model_and_inputs(dev):
+    """The 3DMatch model at demo caps with seeded weights, and the model
+    inputs of two distinct pairs of the same shapes (the demo pair, and the
+    same two clouds swapped), each pyramid built once: two builds of one
+    pyramid may differ in the last bit of a centroid (the subsampling's
+    atomic sums)."""
+    from ref_geotransformer_tpu_torch import demo
+    from ref_geotransformer_tpu_torch.config.threedmatch import make_cfg
+    from ref_geotransformer_tpu_torch.data.pyramid import build_registration_inputs
+
+    cfg = make_cfg(demo=True)
+    pair = demo.load_pair(cfg, dev)
+    bb, caps = cfg.backbone, cfg.capacities
+    inputs = []
+    for ref, src in (("ref", "src"), ("src", "ref")):
+        inputs.append(build_registration_inputs(
+            pair[f"{ref}_points"], pair[f"{ref}_masks"], pair[f"{src}_points"], pair[f"{src}_masks"], bb.num_stages,
+            bb.init_voxel_size, bb.init_radius, caps.neighbor_limits, caps.points, search_chunk=caps.search_chunk))
+    return cfg, demo.build_model(cfg, dev, seed=2), inputs
+
+
+@pytest.mark.cuda
+def test_backbone_graph_replays_the_eager_backbone_bit_for_bit():
+    """The model with kernels replays the backbone as one CUDA graph from its
+    third call on; over two distinct pairs each replay equals the eager
+    backbone (the plain model's) bit for bit, and the first call's output is
+    unchanged after a later replay (each call returns tensors of its own)."""
+    from ref_geotransformer_tpu_torch import demo
+
+    dev = _cuda()
+    cfg, graph, inputs = _card_model_and_inputs(dev)
+    eager = demo.build_model(cfg, dev, seed=2, use_kernels=False)
+    for _ in range(2):
+        graph(inputs[0])
+    got, want = [], []
+    hooks = [graph.backbone.register_forward_hook(lambda m, a, out: got.append(out)),
+             eager.backbone.register_forward_hook(lambda m, a, out: want.append(out))]
+    try:
+        for data in inputs:
+            graph(data)
+            eager(data)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    entries = list(graph.backbone._graphs.values())
+    assert len(entries) == 1 and entries[0].graph is not None
+    first = [t.clone() for t in got[0]]
+    for i in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(got[i], want[i])), f"pair {i}"
+    assert not all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+    graph(inputs[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[0], first))
+
+
+@pytest.mark.cuda
+def test_forward_reads_nothing_back_on_card():
+    """Once the backbone's graph is captured, the forward from `gt.backbone`
+    through `gt.lgr` (the partition, the transformer, matching, Sinkhorn and
+    local-to-global registration) runs under
+    `torch.cuda.set_sync_debug_mode("error")`: no op of it reads back."""
+    dev = _cuda()
+    cfg, model, inputs = _card_model_and_inputs(dev)
+    for _ in range(2):
+        model(inputs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model(inputs[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out["estimated_transform"]).all())

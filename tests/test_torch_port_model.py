@@ -208,3 +208,46 @@ def test_slice_on_the_port_pyramid(slice_setup):
             assert scaled_error(g, w) <= 2e-5, f"{side} points {level}"
     model = load_jax_variables(GeoTransformer(port_config(cfg)), variables)
     _check_slice(model(pdata), want)
+
+
+@pytest.mark.parametrize("batch", [(5,), (2, 3)], ids=["batch", "nested batch"])
+def test_svd_marks_failed_matrices_nan(batch):
+    """A matrix that cuSOLVER's `info` reports failed or not converged, or
+    that holds a value that is not finite, gets NaN in U, S and Vh, set in
+    place with no read-back by `ops/svd.py`; every other matrix is left as
+    it was."""
+    from ref_geotransformer_tpu_torch.ops.svd import _fail_nan, _failed
+
+    a = torch.from_numpy(np.random.default_rng(7).normal(size=batch + (3, 3)).astype(np.float32))
+    want = torch.linalg.svd(a)
+    u, s, vh = (t.clone() for t in want)
+    n = a.numel() // 9
+    info = torch.zeros(n, dtype=torch.int32)
+    info[1], info[-1] = 4, -3
+    a.view(n, 3, 3)[2, 0, 1] = float("inf")
+    failed = _failed(info, a)
+    expected = torch.zeros(n, dtype=torch.bool)
+    expected[[1, 2, n - 1]] = True
+    assert torch.equal(failed, expected.reshape(batch))
+    _fail_nan(u, s, vh, failed)
+    for got, w in zip((u, s, vh), want):
+        assert bool(torch.isnan(got[failed]).all())
+        assert torch.equal(got[~failed], w[~failed])
+
+
+@pytest.mark.parametrize("case", ["cpu batch", "cpu matrix", "cpu float64", "requires grad, off the cpu"])
+def test_read_back_free_svd_takes_torch_off_the_card(case):
+    """`ops/svd.py::svd` calls cuSOLVER itself only for CUDA tensors that do
+    not require grad: CPU tensors get `torch.linalg.svd`'s results bit for
+    bit, and an input that requires grad keeps its graph (here a meta
+    tensor, which only torch's own operator takes)."""
+    from ref_geotransformer_tpu_torch.ops.svd import svd
+
+    a = torch.from_numpy(np.random.default_rng(13).normal(size=(6, 3, 3)).astype(np.float32))
+    if case == "requires grad, off the cpu":
+        u, s, vh = svd(a.to("meta").requires_grad_())
+        assert u.shape == (6, 3, 3) and s.shape == (6, 3) and vh.requires_grad
+        return
+    a = {"cpu batch": a, "cpu matrix": a[0], "cpu float64": a.double()}[case]
+    for got, want in zip(svd(a), torch.linalg.svd(a)):
+        assert torch.equal(got, want) and got.stride() == want.stride()

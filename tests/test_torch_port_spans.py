@@ -8,7 +8,12 @@
   update, whose guard and optimizer step lie in `gt.update`;
 * with no profiler active no span enters `record_function`;
 * the epoch trainer's profile window writes `gt.train_step` and `gt.load`
-  into its Chrome trace.
+  into its Chrome trace;
+* on CPU tensors the model built with kernels takes the plain paths (no
+  backbone graph, torch's SVD in LGR), grad off or on;
+* what the backbone's graph reads of a pair gives the eager features;
+* the benchmark's readers of the backbone's graph replays and of LGR's
+  read-backs, on hand-made traces.
 
 On the CPU, at tests/torch_port_utils.py::tiny4_config.
 """
@@ -17,6 +22,7 @@ import collections
 import dataclasses
 import json
 import os
+import types
 
 import pytest
 import torch
@@ -126,3 +132,111 @@ def test_trainer_profile_window_holds_train_step_and_load_spans(tmp_path):
     names = collections.Counter(e["name"] for e in events if e.get("cat") == "user_annotation")
     assert names["gt.train_step"] == 2
     assert names["gt.load"] == 2
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_kernel_model_takes_the_plain_paths_on_the_cpu(setup, training):
+    """On CPU tensors, with grad off (inference) or on (a training forward),
+    the model built with kernels captures no backbone graph, and LGR's SVDs
+    are `torch.linalg.svd`'s: its outputs are the plain model's bit for bit."""
+    from ref_geotransformer_tpu_torch.data.pyramid import build_registration_inputs
+
+    cfg, model, pair = setup
+    plain = demo.build_model(cfg, torch.device("cpu"), seed=3, use_kernels=False)
+    bb, caps = cfg.backbone, cfg.capacities
+    data = build_registration_inputs(pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
+                                     bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits,
+                                     caps.points, transform=pair["transform"], search_chunk=caps.search_chunk)
+    got = model(data, training=training, generator=torch.Generator().manual_seed(4))
+    want = plain(data, training=training, generator=torch.Generator().manual_seed(4))
+    assert model.backbone._graphs == {}
+    assert got.keys() == want.keys()
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
+    assert got["estimated_transform"].requires_grad is False
+
+
+
+def test_backbone_graph_inputs_give_the_eager_features(setup):
+    """What the backbone's CUDA graph reads of a pair (`_read`: every level's
+    points, masks, neighbors and subsampling, column 0 of the upsampling
+    tables the decoders use, nothing of the others), stacked into buffers as
+    `stack_inputs` stacks it, gives the eager backbone's features bit for
+    bit."""
+    from ref_geotransformer_tpu_torch.data.pyramid import build_registration_inputs
+    from ref_geotransformer_tpu_torch.models.backbone import stack_pair
+
+    cfg, model, pair = setup
+    bb, caps = cfg.backbone, cfg.capacities
+    data = build_registration_inputs(pair["ref_points"], pair["ref_masks"], pair["src_points"], pair["src_masks"],
+                                     bb.num_stages, bb.init_voxel_size, bb.init_radius, caps.neighbor_limits,
+                                     caps.points, search_chunk=caps.search_chunk)
+    backbone, ref, src = model.backbone, data["ref"], data["src"]
+    read = backbone._read(ref)
+    used = [backbone.fine_level <= i <= backbone.num_stages - 2 for i in range(len(ref["upsampling"]))]
+    assert [t is not None for t in read["upsampling"]] == used and any(used) and not all(used)
+    assert all(t.shape[-1] == 1 for t in read["upsampling"] if t is not None)
+    bufs = {key: tuple(None if t is None else torch.empty((2,) + t.shape, dtype=t.dtype) for t in ts)
+            for key, ts in read.items()}
+    assert stack_pair(backbone._read(ref), backbone._read(src), out=bufs) is bufs
+    feats = torch.stack([data["ref_feats"], data["src_feats"]], dim=0)
+    with torch.no_grad():
+        got = backbone._forward(feats, bufs)
+        want = backbone(feats, stack_pair(ref, src))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+def _reader_run(events, mode="infer"):
+    import tempfile
+
+    from portbench.trace import parse_chrome_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with open(path, "w") as f:
+            json.dump({"traceEvents": events}, f)
+        return types.SimpleNamespace(trace=parse_chrome_trace(path, 2), mode=mode)
+
+
+def _ev(name, ts, dur, tid=1, cat="user_annotation"):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid, "pid": 1, "args": {}}
+
+
+def _pairs(replay: bool, readbacks: int):
+    """Two pairs' spans in a window; `readbacks` read-backs inside each pair's
+    `gt.lgr`, one before it and one on another thread inside it."""
+    events = [_ev("pb.window", 0, 200)]
+    for at in (0, 100):
+        events += [_ev("gt.register", at + 1, 98), _ev("gt.backbone", at + 10, 20), _ev("gt.lgr", at + 60, 30),
+                   _ev("aten::_local_scalar_dense", at + 50, 1, cat="cpu_op"),
+                   _ev("aten::_local_scalar_dense", at + 70, 1, tid=2, cat="cpu_op")]
+        events += [_ev("aten::_local_scalar_dense", at + 61 + 3 * i, 1, cat="cpu_op") for i in range(readbacks)]
+        if replay:
+            events.append(_ev("gt.backbone.replay", at + 12, 5))
+    return events
+
+
+@pytest.mark.parametrize("case", ["eager backbone, LGR reading back", "graph replay, LGR without reads",
+                                  "no program spans", "training"])
+def test_graph_and_readback_readers(case):
+    """`backbone_graph_share.infer` reads 0 on a trace without the replay span
+    and 1 with it; `lgr_readbacks_per_pair.infer` counts the main thread's
+    read-backs inside `gt.lgr` per pair (0 without any); both read None
+    without the program's spans and in training."""
+    from portbench import harness
+
+    share, reads = (harness.load_reader(n) for n in ("backbone_graph_share.infer", "lgr_readbacks_per_pair.infer"))
+    if case == "eager backbone, LGR reading back":
+        run = _reader_run(_pairs(replay=False, readbacks=9))
+        assert (share(run), reads(run)) == (0.0, 9.0)
+    elif case == "graph replay, LGR without reads":
+        run = _reader_run(_pairs(replay=True, readbacks=0))
+        assert (share(run), reads(run)) == (1.0, 0.0)
+    elif case == "no program spans":
+        run = _reader_run([e for e in _pairs(replay=False, readbacks=9) if not e["name"].startswith("gt.")])
+        assert (share(run), reads(run)) == (None, None)
+    else:
+        run = _reader_run(_pairs(replay=True, readbacks=9), mode="train")
+        assert (share(run), reads(run)) == (None, None)
+        assert share(types.SimpleNamespace(trace=None, mode="infer")) is None
